@@ -1,0 +1,70 @@
+// Shared helpers of the port's kernels: clamped indexing and block scans.
+//
+// Every index a kernel derives from stream data is clamped before it is
+// used: the JAX decoder's gathers clamp silently (XLA semantics), and a
+// corrupt container must end in a CRC failure, never in a device fault.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define NLZM_API extern "C" __attribute__((visibility("default")))
+
+__device__ __forceinline__ int clampi(int v, int lo, int hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+
+__device__ __forceinline__ int warp_inclusive_sum(int x) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  return x;
+}
+
+__device__ __forceinline__ int warp_sum(int x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Block-wide exclusive prefix sums of NV values per thread, in thread
+// order. v[j] becomes the sum of v[j] over lower threads; total[j] the
+// sum over the block. blockDim.x must be a multiple of 32. scratch holds
+// 32 x NV ints of shared memory; every thread of the block must call.
+template <int NV>
+__device__ __forceinline__ void block_exclusive_scan(int (&v)[NV], int (&total)[NV],
+                                                     int (*scratch)[NV]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  int incl[NV];
+#pragma unroll
+  for (int j = 0; j < NV; ++j) incl[j] = warp_inclusive_sum(v[j]);
+  if (lane == 31) {
+#pragma unroll
+    for (int j = 0; j < NV; ++j) scratch[warp][j] = incl[j];
+  }
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      int s = lane < nwarps ? scratch[lane][j] : 0;
+      s = warp_inclusive_sum(s);
+      if (lane < nwarps) scratch[lane][j] = s;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int base = warp > 0 ? scratch[warp - 1][j] : 0;
+    total[j] = scratch[nwarps - 1][j];
+    v[j] = base + incl[j] - v[j];
+  }
+  __syncthreads();  // scratch is free for the next call
+}
+
+// Launch epilogue shared by the C entry points: the launch's own error
+// (bad configuration, too many resources) as an int, 0 when it launched.
+static inline int launch_status() { return static_cast<int>(cudaGetLastError()); }

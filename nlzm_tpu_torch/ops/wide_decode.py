@@ -1,0 +1,563 @@
+"""Batched decoder for the NLZP wide profile, in PyTorch with CUDA kernels.
+
+Counterpart of nlzm_tpu/ops/wide_decode.py, stage for stage:
+
+1. host staging (prepare_wide): parse block payloads into compact plane
+   streams, chunk-offset tables and raw-bit halfwords, uploaded as tensors;
+2. stage_windows_fused: dense per-chunk renorm windows of every plane;
+3. plane_scan_fused: the fused rANS decode of all five symbol planes;
+4. assemble_ops: plane symbols -> LZ commands (op_len, op_val) [Tc, B];
+5. expand_ops.lz_expand_parallel: commands -> bytes.
+
+Steps 2-5 each have a CUDA kernel (csrc/) and a plain PyTorch version
+(the *_ref functions). The public function dispatches on the device of
+its tensors: CPU tensors run the plain version, CUDA tensors launch the
+kernel. Both are exact integer code and agree with the JAX decoder array
+for array on valid streams; on corrupt streams every index is clamped, so
+the decode ends in a CRC failure, not a fault.
+
+Storage: the u16 streams (hw_cat, bit_half) ride as int16 tensors holding
+the raw 16 bits (the kernels read them as unsigned short, the plain
+versions mask with 0xFFFF), lane seeds as int32 holding u32 bits.
+"""
+
+import functools
+
+import numpy as np
+import torch
+
+from nlzm_tpu.constants import CDF_SCALE_BITS, CDF_SCALE_TOTAL
+from nlzm_tpu.format.wide import (
+    N_PLANES,
+    PLANES,
+    TOK_DICT,
+    TOK_LIT,
+    TOK_REP,
+    chunk_schedule,
+    padded_steps,
+    parse_payload,
+    parse_priors,
+)
+
+from .. import _build
+from .expand_ops import lz_expand_parallel
+from .sort_gather import compact_by_rank, gather_rows
+
+NP = N_PLANES
+# Fused-scan lane layout ("slot order"): planes grouped by alphabet, the
+# small alphabets first, wire order within a group - tok|len|dst|lit|lex.
+# Slot q holds wire plane SLOT_PLANE[q]; lane seeds are staged this way.
+SLOT_PLANE = tuple(sorted(range(NP), key=lambda p: (PLANES[p].alphabets[0] > 64, p)))
+PLANE_SLOT = tuple(SLOT_PLANE.index(p) for p in range(NP))
+SLOT_LANES = tuple(PLANES[p].lanes for p in SLOT_PLANE)
+SLOT_BASE = tuple(int(x) for x in np.cumsum((0,) + SLOT_LANES))
+LTOT = SLOT_BASE[-1]
+SLOT_ALPH = tuple(PLANES[p].alphabets[0] for p in SLOT_PLANE)
+# csrc/plane_scan.cu is compiled for exactly this layout
+assert (SLOT_PLANE, SLOT_LANES, SLOT_ALPH) == (
+    (0, 2, 4, 1, 3), (64, 32, 32, 64, 16), (4, 8, 64, 256, 256)
+)
+
+# The JAX decoder cuts every plane output to 2^15 columns for blocks of
+# at most 32 KiB (its packed-sort budget; symbol counts never exceed it).
+# The port keeps the cut so the command arrays keep the JAX shapes.
+CAP15 = 1 << 15
+_U32 = 0xFFFFFFFF
+
+
+def rounds_hint_of(max_depth: int):
+    """Exact pointer-doubling round budget for a max chain depth; None
+    when the depth is unknown (legacy containers)."""
+    if max_depth <= 0:
+        return None
+    return max(0, max_depth - 1).bit_length()
+
+
+# ------------------------------------------------------- window staging
+
+
+def stage_windows_fused_ref(hw_cat, offs, ends, WHs):
+    """Plain version of stage_windows_fused."""
+    B, H = hw_cat.shape
+    src = hw_cat.long() & 0xFFFF
+    nxt = torch.cat([offs[:, :, 1:], ends[:, :, None]], dim=2)
+    pc = (nxt - offs).long()  # pair count per (block, plane, chunk)
+    NC = offs.shape[2]
+    wins = []
+    for p in range(NP):
+        k = torch.arange(WHs[p], device=hw_cat.device)
+        q = offs[:, p, :, None].long() + k  # [B, NC, WH_p]
+        w = gather_rows(src, q.reshape(B, NC * WHs[p])).reshape(B, NC, WHs[p])
+        w = torch.where(k < pc[:, p, :, None], w, 0)
+        wins.append(w.permute(1, 0, 2).contiguous())
+    return tuple(wins)
+
+
+def stage_windows_fused(hw_cat, offs, ends, WHs):
+    """Every plane's dense per-chunk renorm windows.
+
+    hw_cat [B, H] int16 (u16 bits): each block's five pair streams at
+    static per-plane bases. offs [B, NP, NC] int32: global pair index of
+    each chunk's first pair; ends [B, NP] int32: end of each plane's
+    stream. Returns NP windows [NC, B, WH_p] int32, wire order:
+    win_p[c, b, k] = hw_cat[b, offs[b, p, c] + k] below the chunk's pair
+    count, 0 past it.
+    """
+    if hw_cat.device.type == "cpu":
+        return stage_windows_fused_ref(hw_cat, offs, ends, WHs)
+    _build.check_cuda("stage_windows_fused", hw_cat, offs, ends)
+    B, H = hw_cat.shape
+    NC = offs.shape[2]
+    if (hw_cat.dtype != torch.int16 or offs.dtype != torch.int32 or ends.dtype != torch.int32
+            or offs.shape != (B, NP, NC) or ends.shape != (B, NP) or len(WHs) != NP):
+        raise ValueError("stage_windows_fused: hw_cat [B,H] int16, offs [B,5,NC] int32, "
+                         "ends [B,5] int32, five window widths")
+    sizes = [NC * B * int(w) for w in WHs]
+    flat = torch.empty(sum(sizes), dtype=torch.int32, device=hw_cat.device)
+    fn = _build.entry("stage_windows", "nlzm_stage_windows", 4, 8)
+    _build.launch(fn, [hw_cat.data_ptr(), offs.data_ptr(), ends.data_ptr(), flat.data_ptr()],
+                  [B, H, NC, *(int(w) for w in WHs)], hw_cat.device)
+    stage_windows_fused.launches += 1
+    return tuple(
+        part.view(NC, B, int(w)) for part, w in zip(torch.split(flat, sizes), WHs)
+    )
+
+
+stage_windows_fused.launches = 0
+
+
+# ------------------------------------------------------------ plane scan
+
+
+def _build_cdf(carry, nsym: int):
+    """Fence table [..., nsym + 1] from counts [..., nsym] (int64): the
+    torch mirror of nlzm_tpu wide_decode._build_cdf_jnp / format.wide.
+    build_cdf. fence[0] = 0, fence[nsym] = 2^14, every symbol freq >= 1."""
+    tot = carry.sum(-1, keepdim=True)
+    freq = 1 + (carry * (CDF_SCALE_TOTAL - nsym)) // (tot + 1)
+    fences = torch.zeros(carry.shape[:-1] + (nsym + 1,), dtype=torch.long, device=carry.device)
+    fences[..., 1:nsym] = freq.cumsum(-1)[..., :-1]
+    fences[..., nsym] = CDF_SCALE_TOTAL
+    return fences
+
+
+def _uniform_fences(B: int, nsym: int, device):
+    f = torch.arange(nsym + 1, device=device) * (CDF_SCALE_TOTAL // nsym)
+    f[nsym] = CDF_SCALE_TOTAL
+    return f.expand(B, nsym + 1)
+
+
+def plane_scan_fused_ref(seeds, wins, n_syms, steps: int, priors=None):
+    """Plain version of plane_scan_fused: one loop iteration per step,
+    lanes as tensors, u32 lane states carried as int64 masked to 32 bits."""
+    B = seeds.shape[0]
+    dev = seeds.device
+    x = seeds.long() & _U32
+    nsym = n_syms.long()
+    carries, fences = [], []
+    for q in range(NP):
+        a = SLOT_ALPH[q]
+        if priors is None:
+            carries.append(torch.zeros(B, a, dtype=torch.long, device=dev))
+            fences.append(_uniform_fences(B, a, dev))
+        else:
+            carries.append(priors[SLOT_PLANE[q]].reshape(1, a).long().expand(B, a).clone())
+            fences.append(_build_cdf(carries[q], a))
+    lanes = [torch.arange(L, device=dev) for L in SLOT_LANES]
+    outs = [torch.zeros(B, steps, L, dtype=torch.int32, device=dev) for L in SLOT_LANES]
+    s = 0
+    for c, clen in enumerate(chunk_schedule(steps)):
+        counts = [torch.zeros(B, a, dtype=torch.long, device=dev) for a in SLOT_ALPH]
+        rel = [torch.zeros(B, 1, dtype=torch.long, device=dev) for _ in range(NP)]
+        for _ in range(clen):
+            for q in range(NP):
+                p, L, a = SLOT_PLANE[q], SLOT_LANES[q], SLOT_ALPH[q]
+                lo, hi = SLOT_BASE[q], SLOT_BASE[q + 1]
+                xq = x[:, lo:hi]
+                f = xq & 0x3FFF
+                fen = fences[q]
+                y = torch.searchsorted(fen[:, 1:].contiguous(), f, right=True).clamp(max=a - 1)
+                start = fen.gather(1, y)
+                freq = fen.gather(1, y + 1) - start
+                x2 = (freq * (xq >> CDF_SCALE_BITS) + (f - start)) & _U32
+                active = (s * L + lanes[q])[None, :] < nsym[:, p : p + 1]
+                ren = active & (x2 < (1 << 16))
+                r = ren.long()
+                rank = r.cumsum(1) - r
+                pair = gather_rows(wins[p][c], rel[q] + rank).long()
+                xn = torch.where(ren, ((x2 << 16) | pair) & _U32, x2)
+                x[:, lo:hi] = torch.where(active, xn, xq)
+                rel[q] = rel[q] + r.sum(1, keepdim=True)
+                y = torch.where(active, y, 0)
+                counts[q].scatter_add_(1, y, active.long())
+                outs[q][:, s] = y.to(torch.int32)
+            s += 1
+        for q in range(NP):
+            carries[q] = (carries[q] >> 1) + counts[q]
+            fences[q] = _build_cdf(carries[q], SLOT_ALPH[q])
+    return tuple(outs[PLANE_SLOT[p]].reshape(B, steps * PLANES[p].lanes) for p in range(NP))
+
+
+@functools.lru_cache(maxsize=64)
+def _schedule_tensor(steps: int, device):
+    """chunk_schedule(steps) as an int32 tensor on `device`, uploaded once
+    per (steps, device): a fresh upload from pageable memory would stall
+    the host until the stream drains, on every scan."""
+    return torch.tensor(chunk_schedule(steps), dtype=torch.int32, device=device)
+
+
+def plane_scan_fused(seeds, wins, n_syms, steps: int, priors=None):
+    """Decode all five planes in one fused scan.
+
+    seeds [B, 208] int32 (u32 bits): lane states in slot order. wins: NP
+    windows [NC, B, WH_p] int32, wire order, NC = len(chunk_schedule(
+    steps)). n_syms [B, NP] int32, wire order. priors: optional NP
+    int32 tensors of the plane alphabet's warm-start counts, wire order.
+    Returns NP symbol arrays [B, steps * L_p] int32, wire order; a lane
+    past its plane's symbol count emits 0.
+    """
+    if seeds.device.type == "cpu":
+        return plane_scan_fused_ref(seeds, wins, n_syms, steps, priors)
+    pri = None if priors is None else torch.cat(
+        [priors[p].reshape(-1) for p in SLOT_PLANE]).to(torch.int32)
+    _build.check_cuda("plane_scan_fused", seeds, n_syms, pri, *wins)
+    B = seeds.shape[0]
+    sched = chunk_schedule(steps)
+    NC = len(sched)
+    if (seeds.dtype != torch.int32 or seeds.shape != (B, LTOT) or n_syms.dtype != torch.int32
+            or n_syms.shape != (B, NP) or len(wins) != NP
+            or any(w.dtype != torch.int32 or w.shape[:2] != (NC, B) for w in wins)
+            or (pri is not None and pri.numel() != sum(SLOT_ALPH))):
+        raise ValueError("plane_scan_fused: seeds [B,208] int32, n_syms [B,5] int32, "
+                         "five int32 windows [NC,B,WH], priors of the plane alphabets")
+    dev = seeds.device
+    sched_t = _schedule_tensor(steps, dev)
+    outs = [torch.empty(B, steps * PLANES[p].lanes, dtype=torch.int32, device=dev)
+            for p in range(NP)]
+    fn = _build.entry("plane_scan", "nlzm_plane_scan", 14, 8)
+    _build.launch(
+        fn,
+        [seeds.data_ptr(), n_syms.data_ptr(), sched_t.data_ptr(),
+         None if pri is None else pri.data_ptr(),
+         *(w.data_ptr() for w in wins), *(o.data_ptr() for o in outs)],
+        [B, NC, steps, *(int(w.shape[2]) for w in wins)],
+        dev,
+    )
+    plane_scan_fused.launches += 1
+    return tuple(outs)
+
+
+plane_scan_fused.launches = 0
+
+
+# -------------------------------------------------------------- assembly
+
+
+def _bits_fetch(bit_half, offs, width):
+    """MSB-first field of `width` (<= 16) bits at bit offset `offs` (both
+    [B, Tc]) from big-endian halfwords [B, H] (int16 holding u16)."""
+    src = bit_half.long() & 0xFFFF
+    h0 = offs >> 4
+    hw0 = gather_rows(src, h0).long()
+    hw1 = gather_rows(src, h0 + 1).long()
+    word = (hw0 << 16) | hw1
+    w = width.clamp(0, 16)
+    v = ((word << (offs & 15)) & _U32) >> (32 - w.clamp(min=1))
+    return torch.where(width > 0, v, 0)
+
+
+def assemble_ops_ref(tok_y, len_y, lex_y, lit_y, slot_y, bit_half, n_cmds):
+    """Plain version of assemble_ops."""
+    B, Tc = tok_y.shape
+    dev = tok_y.device
+    tok = tok_y.long()
+    active = torch.arange(Tc, device=dev)[None, :] < n_cmds.long()[:, None]
+    is_lit = active & (tok == TOK_LIT)
+    is_rep = active & (tok == TOK_REP)
+    is_dict = active & (tok == TOK_DICT)
+    is_match = is_rep | is_dict
+
+    def rank_of(m):  # exclusive prefix count
+        c = m.long()
+        return c.cumsum(1) - c
+
+    m_rank = rank_of(is_match)
+    len_sym = torch.where(is_match, gather_rows(len_y, m_rank).long(), 0)
+    esc = is_match & (len_sym == 7)
+    ext = torch.where(esc, gather_rows(lex_y, rank_of(esc)).long(), 0)
+    lv = torch.where(esc, 7 + ext, len_sym)
+    d_rank = rank_of(is_dict)
+
+    slot = torch.where(is_dict, gather_rows(slot_y, d_rank).long(), 0)
+    is_big_slot = slot >= 4
+    # the format maximum (128 KiB blocks + dictionary) keeps ab <= 16
+    ab = torch.where(is_dict & is_big_slot, (slot >> 1) - 1, 0).clamp(0, 16)
+    widths = torch.where(is_rep, 2, 0) + ab
+    v = _bits_fetch(bit_half, widths.cumsum(1) - widths, widths)
+    rep_idx = torch.where(is_rep, v, 0)
+    extra = torch.where(is_dict, v, 0)
+    dv = torch.where(is_big_slot, ((2 + (slot & 1)) << ab) + extra, slot)
+    delta_dict = torch.where(is_dict, dv + 1, 0)
+
+    # rep r = the r-th most recent dict distance (virtual history 1..4)
+    D = compact_by_rank(delta_dict, d_rank, is_dict, Tc)
+    j = d_rank - 1 - rep_idx
+    delta_rep = torch.where(j >= 0, gather_rows(D, j.clamp(min=0)).long(), -j)
+    delta = torch.where(is_rep, delta_rep, delta_dict)
+
+    byte = torch.where(is_lit, gather_rows(lit_y, rank_of(is_lit)).long(), 0)
+    mmin = 2 + (delta > 0xFF).long() + (delta > 0xFFF).long() + (delta > 0xFFFFF).long()
+    op_len = torch.where(active, torch.where(is_match, lv + mmin, 0), -1)
+    op_val = torch.where(is_match, delta, byte)
+    return op_len.t().to(torch.int32).contiguous(), op_val.t().to(torch.int32).contiguous()
+
+
+def assemble_ops(tok_y, len_y, lex_y, lit_y, slot_y, bit_half, n_cmds):
+    """Plane symbols -> (op_len [Tc, B], op_val [Tc, B]) int32 for
+    lz_expand_parallel; Tc = tok_y.shape[1].
+
+    Plane arrays are [B, width] int32 and may be column slices (unit
+    inner stride); bit_half [B, H] int16 (u16 bits); n_cmds [B] int32.
+    """
+    if tok_y.device.type == "cpu":
+        return assemble_ops_ref(tok_y, len_y, lex_y, lit_y, slot_y, bit_half, n_cmds)
+    planes = (tok_y, len_y, lex_y, lit_y, slot_y)
+    _build.check_cuda("assemble_ops", bit_half, n_cmds)
+    B, Tc = tok_y.shape
+    if (any(a.device != bit_half.device or a.dtype != torch.int32 or a.dim() != 2
+            or a.shape[0] != B or a.stride(1) != 1 for a in planes)
+            or bit_half.dtype != torch.int16 or n_cmds.dtype != torch.int32
+            or n_cmds.shape != (B,)):
+        raise ValueError("assemble_ops: [B, W] int32 planes with unit inner stride on the "
+                         "device of bit_half [B,H] int16, n_cmds [B] int32")
+    dev = tok_y.device
+    dscratch = torch.empty(B, Tc, dtype=torch.int32, device=dev)
+    op_len = torch.empty(Tc, B, dtype=torch.int32, device=dev)
+    op_val = torch.empty(Tc, B, dtype=torch.int32, device=dev)
+    fn = _build.entry("assemble", "nlzm_assemble", 10, 12)
+    geom = []
+    for a in planes:
+        geom += [a.shape[1], a.stride(0)]
+    _build.launch(
+        fn,
+        [*(a.data_ptr() for a in planes), bit_half.data_ptr(), n_cmds.data_ptr(),
+         dscratch.data_ptr(), op_len.data_ptr(), op_val.data_ptr()],
+        [B, *geom, bit_half.shape[1]],
+        dev,
+    )
+    assemble_ops.launches += 1
+    return op_len, op_val
+
+
+assemble_ops.launches = 0
+
+
+# ---------------------------------------------------------- host staging
+
+
+def _prepare_wide_np(payloads, priors_blob: bytes | None = None) -> dict:
+    """Parse block payloads into the staged arrays, as numpy: the same
+    arrays, layouts and widths as nlzm_tpu's prepare_wide builds before
+    its upload, in its dict format (see staged_from_jax)."""
+    B = len(payloads)
+    counts = np.zeros((B, NP), np.int64)
+    plane_streams = [[] for _ in range(NP)]
+    plane_offsets = [[] for _ in range(NP)]
+    bit_chunks = []
+    for b, p in enumerate(payloads):
+        cnts, streams, offsets, bits = parse_payload(p)
+        for i in range(NP):
+            counts[b, i] = cnts[i]
+            plane_streams[i].append(streams[i])
+            plane_offsets[i].append(offsets[i])
+        bit_chunks.append(bits)
+
+    # one global step count for the fused scan (the max of the planes'
+    # padded counts is itself a valid schedule sum)
+    steps = max(
+        padded_steps(int(counts[:, i].max()), PLANES[i].lanes) for i in range(NP)
+    )
+    NC = len(chunk_schedule(steps))
+
+    seeds_cat = np.zeros((B, LTOT), np.uint32)
+    hw_lens = np.zeros((B, NP), np.int64)
+    for i in range(NP):
+        L = PLANES[i].lanes
+        q0 = SLOT_BASE[PLANE_SLOT[i]]
+        seeds_cat[:, q0 : q0 + L] = np.frombuffer(
+            b"".join(s[: 4 * L] for s in plane_streams[i]), "<u4"
+        ).reshape(B, L)
+        hw_lens[:, i] = [(len(s) - 4 * L) // 2 for s in plane_streams[i]]
+    Hmax = np.maximum(8, hw_lens.max(axis=0))
+    bases = np.zeros(NP + 1, np.int64)
+    np.cumsum(Hmax, out=bases[1:])
+
+    hw_cat = np.zeros((B, int(bases[-1])), np.uint16)
+    offs_g = np.zeros((B, NP, NC), np.int32)
+    ends_g = np.zeros((B, NP), np.int32)
+    for i in range(NP):
+        L = PLANES[i].lanes
+        flat = np.frombuffer(b"".join(s[4 * L :] for s in plane_streams[i]), ">u2")
+        base = 0
+        b0 = int(bases[i])
+        for b in range(B):
+            n = int(hw_lens[b, i])
+            hw_cat[b, b0 : b0 + n] = flat[base : base + n]
+            base += n
+            o = plane_offsets[i][b]
+            offs_g[b, i, : len(o)] = b0 + (o // 2)
+            offs_g[b, i, len(o) :] = b0 + n
+            ends_g[b, i] = b0 + n
+
+    pair_counts = np.concatenate([offs_g[:, :, 1:], ends_g[:, :, None]], axis=2) - offs_g
+    WHs = tuple(
+        max(8, int(-(-pair_counts[:, i, :].max() // 8)) * 8) for i in range(NP)
+    )
+
+    hmax = (max(len(x) for x in bit_chunks) + 1) // 2 + 2
+    bit_arr = np.zeros((B, hmax), np.uint16)
+    for b, c in enumerate(bit_chunks):
+        cb = np.frombuffer(c + b"\x00" * (len(c) & 1), np.uint8).astype(np.uint16)
+        bit_arr[b, : len(cb) // 2] = (cb[0::2] << 8) | cb[1::2]
+    priors = None
+    if priors_blob:
+        priors = {
+            name: [np.asarray(a, np.int32) for a in pr]
+            for name, pr in parse_priors(priors_blob).items()
+        }
+    return {
+        "priors": priors,
+        "n_sym": [counts[:, i].astype(np.int32) for i in range(NP)],
+        "seeds_cat": seeds_cat,
+        "hw_cat": hw_cat,
+        "offs": offs_g,
+        "ends": ends_g,
+        "WHs": WHs,
+        "bit_half": bit_arr,
+        "steps": [steps] * NP,
+    }
+
+
+def staged_from_jax(staged_np: dict, device) -> dict:
+    """The port's staged dict from a nlzm_tpu prepare_wide staged dict.
+
+    staged_np holds the JAX dict's arrays as numpy (any array-like that
+    numpy converts will do). The port's dict: seeds_cat [B, 208] int32
+    (u32 bits), hw_cat [B, H] int16 and bit_half [B, Hb] int16 (u16
+    bits), offs [B, 5, NC] / ends [B, 5] int32, n_sym [B, 5] int32,
+    priors (five int32 [alph] tensors, wire order) or None, dict_arr [D]
+    uint8 or None, all on `device`; and the host-side WHs, steps (int)
+    and rounds_hint. (nlzm_tpu's "bases" and "B" are implied by the
+    shapes and not carried.)
+    """
+    dev = torch.device(device)
+
+    def put(a, dtype, view=None):
+        a = np.array(a, dtype=dtype)  # an owned, writable copy
+        return torch.as_tensor(a if view is None else a.view(view), device=dev)
+
+    priors = staged_np.get("priors")
+    out = {
+        "seeds_cat": put(staged_np["seeds_cat"], np.uint32, np.int32),
+        "hw_cat": put(staged_np["hw_cat"], np.uint16, np.int16),
+        "offs": put(staged_np["offs"], np.int32),
+        "ends": put(staged_np["ends"], np.int32),
+        "WHs": tuple(int(w) for w in staged_np["WHs"]),
+        "bit_half": put(staged_np["bit_half"], np.uint16, np.int16),
+        "n_sym": put(np.stack([np.asarray(a) for a in staged_np["n_sym"]], axis=1), np.int32),
+        "priors": None if not priors else tuple(
+            put(np.asarray(priors[PLANES[p].name][0]).reshape(-1), np.int32)
+            for p in range(NP)
+        ),
+        "steps": int(staged_np["steps"][0]),
+        "rounds_hint": staged_np.get("rounds_hint"),
+        "dict_arr": None,
+    }
+    if staged_np.get("dict_arr") is not None:
+        out["dict_arr"] = put(staged_np["dict_arr"], np.uint8)
+    return out
+
+
+def prepare_wide(payloads, priors_blob: bytes | None = None, *, device) -> dict:
+    """Host prep: parse block payloads and stage them on `device`."""
+    return staged_from_jax(_prepare_wide_np(payloads, priors_blob), device)
+
+
+N_BUCKETS = 2  # nlzm_tpu's prepare_wide_bucketed default, the one its decode uses
+
+
+def prepare_wide_bucketed(payloads, priors_blob: bytes | None = None, *, device):
+    """Quantile buckets by tok symbol count, each staged on its own
+    (smaller) widths: [(staged, block_index_list), ...]. One bucket when
+    B <= 8 * N_BUCKETS, as in nlzm_tpu."""
+    B = len(payloads)
+    if B <= N_BUCKETS * 8:
+        return [(prepare_wide(payloads, priors_blob, device=device), list(range(B)))]
+    tok_counts = [int.from_bytes(p[0:4], "big") for p in payloads]
+    order = sorted(range(B), key=lambda b: tok_counts[b])
+    out = []
+    for k in range(N_BUCKETS):
+        idx = order[k * B // N_BUCKETS : (k + 1) * B // N_BUCKETS]
+        if idx:
+            out.append((prepare_wide([payloads[b] for b in idx], priors_blob, device=device), idx))
+    return out
+
+
+# ---------------------------------------------------------------- driver
+
+
+def stage_windows_of(staged):
+    """Windows from a staged dict."""
+    return stage_windows_fused(staged["hw_cat"], staged["offs"], staged["ends"], staged["WHs"])
+
+
+def decode_wide_staged(staged, block_size: int):
+    """Staged plane streams -> (out [B, block_size] uint8, produced [B])."""
+    n_sym = staged["n_sym"]
+    ys = plane_scan_fused(
+        staged["seeds_cat"], stage_windows_of(staged), n_sym, staged["steps"], staged["priors"]
+    )
+    if block_size <= CAP15:
+        ys = tuple(a[:, : min(a.shape[1], CAP15)] for a in ys)
+    tok_y, lit_y, len_y, lex_y, slot_y = ys
+    op_len, op_val = assemble_ops(
+        tok_y, len_y, lex_y, lit_y, slot_y, staged["bit_half"], n_sym[:, 0].contiguous()
+    )
+    return lz_expand_parallel(
+        op_len, op_val, block_size, staged.get("rounds_hint"), staged.get("dict_arr")
+    )
+
+
+def stage_buckets(payloads, priors_blob: bytes | None, max_depth, dictionary: bytes | None,
+                  *, device):
+    """prepare_wide_bucketed, with each bucket's doubling budget and the
+    shared dictionary set: [(staged, block_index_list), ...] on `device`.
+
+    max_depth: the chain depth of each block (the container's
+    total_reads); each bucket runs the exact budget of its deepest block.
+    dictionary: the container's shared dictionary (virtual history before
+    every block) or None.
+    """
+    dev = torch.device(device)
+    buckets = prepare_wide_bucketed(payloads, priors_blob, device=dev)
+    dict_arr = None
+    if dictionary:
+        dict_arr = torch.as_tensor(np.frombuffer(dictionary, np.uint8).copy(), device=dev)
+    for staged, idx in buckets:
+        staged["rounds_hint"] = rounds_hint_of(max((max_depth[b] for b in idx), default=0))
+        staged["dict_arr"] = dict_arr
+    return buckets
+
+
+def decode_wide_blocks(
+    payloads, block_size: int, total_len: int, priors_blob: bytes | None,
+    max_depth, dictionary: bytes | None, *, device,
+) -> bytes:
+    """Decode wide-profile block payloads on `device` (arguments as in
+    stage_buckets); blocks land at block_size strides, cut to total_len."""
+    dev = torch.device(device)
+    full = torch.zeros(len(payloads), block_size, dtype=torch.uint8, device=dev)
+    for staged, idx in stage_buckets(payloads, priors_blob, max_depth, dictionary, device=dev):
+        out, _produced = decode_wide_staged(staged, block_size)
+        full[torch.as_tensor(idx, device=dev)] = out
+    return full.cpu().numpy().tobytes()[:total_len]
