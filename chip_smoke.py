@@ -3,39 +3,120 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path - wide-profile NLZP container decode - on the
-card and fails (nonzero exit, no result line) on anything wrong:
+Drives the port's main paths - wide-profile and v1 NLZP container decode,
+in memory and from files - on the card and fails (nonzero exit, no
+result line) on anything wrong:
 
 1. device: a CUDA device is required; prints the card's name and power limit;
-2. build: compiles the four kernels from nlzm_tpu_torch/csrc with nvcc;
-3. kernels: encodes the bench corpus (8 MB) at the shipping config with
-   the native host encoder, stages it on the card, and holds each kernel
-   against its plain PyTorch version on the same device tensors at these
-   main-path shapes (exact: the codec is integer and lossless);
-   times both with CUDA events;
-4. end to end: decode_container(device="cuda") must return the input
-   (CRC-verified) with every kernel's launch count > 0; decode MB/s;
-5. frontier: the same at 128 KiB blocks, 128 KiB dictionary, depth cap
-   12, on 4 MB;
-6. corrupt input: a flipped stream byte must raise IntegrityError, and a
-   valid decode right after must still succeed.
+2. build: compiles the five kernels from nlzm_tpu_torch/csrc with nvcc,
+   one process per source, all at once;
+3. kernels: encodes the bench corpus (8 MB) at the wide shipping config
+   with the native host encoder, stages it on the card, and holds each
+   wide-path kernel against its plain PyTorch version on the same device
+   tensors at these main-path shapes (exact: the codec is integer and
+   lossless), lz_expand also at round hints 0 and 1; times both with
+   CUDA events;
+4. e2e_ship: decode_container(device="cuda") must return the input
+   (CRC-verified) with every kernel of the path launched; decode MB/s;
+5. e2e_frontier: the same at 128 KiB blocks, 128 KiB dictionary, depth
+   cap 12, on 4 MB; then lz_expand at round hints 0 and 1 against its
+   plain version on these buckets;
+6. corrupt: a flipped stream byte must raise IntegrityError, and a valid
+   decode right after must still succeed;
+7. kernels_v1: the bench's v1 config (8 MB, 32 KiB blocks, optimal
+   parse): fsm_decode against fsm_decode_v2_ref and lz_expand on the v1
+   command arrays against its plain version, exact; CUDA-event times;
+8. e2e_v1_bench: the v1 decode of that container, as in 4;
+9. e2e_v1_cli: the CLI's block default (128 KiB blocks, v1, optimal) on
+   8 MB, end to end only;
+10. e2e_v1_512k: 2 MB at 512 KiB blocks (greedy), end to end, then
+    lz_expand at round hints 0 and 1 on its commands: the kernel's
+    literal mask in global memory;
+11. corrupt_v1: a flipped v1 payload bit must raise IntegrityError, and a
+    valid decode right after must still succeed;
+12. stream: the shipping wide and the bench v1 containers as files,
+    decode_container_stream(bucket_bytes=2 MiB) to a file and in test
+    mode: output and CRC must equal the input's, with the four wide
+    kernels, or fsm_decode and lz_expand, launched.
 
-Each phase prints one JSON line. The last three lines are the kernels
-summary, the card line of nvidia-smi, and {"ok": true, "device": ...}.
-Imports nothing of JAX: the port and the jax-free host code it uses.
+Launch counts are set to 0 just before each main-path decode (4, 5, 8,
+9, 10 and both calls of each file in 12) and read just after; a path
+that did not launch each of its kernels fails. The kernels line reports
+the counts of 4, 8 and the to-file calls of 12. Each phase prints one
+JSON line. The last three lines are the kernels summary, the card line
+of nvidia-smi, and {"ok": true, "device": ...}. Imports nothing of JAX,
+of nlzm_tpu or of bench.py: the port, and its own copy of bench.py's
+corpus generator.
 """
 
 import json
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
+from pathlib import Path
 
 SHIP = dict(block_size=32768, dict_size=32768, depth_cap=8)  # bench.py primary config
 FRONTIER = dict(block_size=131072, dict_size=131072, depth_cap=12)
+V1_BENCH = dict(block_size=32768, parser="optimal")  # bench.py:346 v1 section
+V1_CLI = dict(block_size=131072, parser="optimal")  # the CLI's -blocks default
+V1_BIG = dict(block_size=524288, parser="greedy")  # lz_expand's global-memory literal mask
 SHIP_BYTES = 8_000_000
 FRONTIER_BYTES = 4_000_000
+V1_CLI_BYTES = 8_000_000
+V1_BIG_BYTES = 2_000_000
+STREAM_BUCKET = 2 << 20
 REPS = 5  # end-to-end timings: best of REPS
 KERNEL_REPS = 20  # kernel timings: mean of KERNEL_REPS back-to-back launches
+FSM_REPS = 5  # fsm_decode: mean of FSM_REPS launches (each runs ~10^4 steps)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+# H100 SXM peak of int32 operations, the type of every kernel here: 132 SMs
+# x 64 INT32 lanes x 2 operations (IADD3, LOP3 and IMAD fuse two) x 1.98
+# GHz boost; half the data sheet's 67 TFLOP/s of fp32 (128 lanes an SM)
+INT32_OPS_PER_S = 132 * 64 * 2 * 1.98e9
+WIDE_KERNELS = ("stage_windows", "plane_scan", "assemble", "lz_expand")
+V1_KERNELS = ("fsm_decode", "lz_expand")
+
+
+def build_corpus(n: int) -> bytes:
+    """Deterministic enwik-like mix: a copy of bench.py:47 build_corpus
+    (tests/test_torch_host.py holds the two equal)."""
+    import random
+
+    rng = random.Random(0xBEEF)
+    import itertools
+
+    words = [
+        "".join(rng.choice("abcdefghijklmnopqrstuvwxyz") for _ in range(rng.randrange(2, 10)))
+        for _ in range(4000)
+    ]
+    cum = list(itertools.accumulate(1.0 / (i + 1) for i in range(len(words))))
+    pick = lambda: rng.choices(words, cum_weights=cum)[0]
+    base = bytearray()
+    while len(base) < 1 << 20:
+        kind = rng.random()
+        if kind < 0.55:  # prose
+            sent = " ".join(pick() for _ in range(rng.randrange(6, 18)))
+            base += (sent.capitalize() + ". ").encode()
+        elif kind < 0.75:  # markup
+            w = pick()
+            base += f"<{w} id=\"{rng.randrange(10**6)}\">{pick()}</{w}>\n".encode()
+        elif kind < 0.95:  # records
+            base += (
+                f"{rng.randrange(10**8):08d},{pick()},"
+                f"{rng.randrange(10**6):06d},OK;\n"
+            ).encode()
+        else:  # noise
+            base += bytes(rng.randrange(256) for _ in range(rng.randrange(40, 200)))
+    base = bytes(base)
+    out = bytearray()
+    while len(out) < n:
+        chunk = bytearray(base)
+        for _ in range(len(chunk) // 256):
+            chunk[rng.randrange(len(chunk))] = rng.randrange(32, 127)
+        out += chunk
+    return bytes(out[:n])
 
 
 def emit(obj) -> None:
@@ -48,24 +129,6 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return r.stdout.strip()
-
-
-def mean_ms(fn, reps: int) -> float:
-    """CUDA-event time of `reps` back-to-back calls of fn() over reps,
-    after one warm-up call: the launches queue up, so host overhead
-    hides behind device time wherever the device is the slower side."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    t1.synchronize()
-    return t0.elapsed_time(t1) / reps
 
 
 def best_ms(fn, reps: int) -> float:
@@ -99,57 +162,198 @@ def max_abs_err(got, want) -> int:
     return int((got.long() - want.long()).abs().max())
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+class Tally:
+    """Per kernel: max |err| against the plain version, summed kernel and
+    plain ms, and summed bound inputs (bytes moved, operations)."""
+
+    def __init__(self):
+        self.k = {}
+
+    def hold(self, name, kernel, plain, reps=KERNEL_REPS, reps_plain=KERNEL_REPS,
+             work=(0, 0), timed=True):
+        """Compare kernel() with plain() exactly; then time both (the
+        comparison call is their warm-up). work = (bytes, ops)."""
+        got, want = kernel(), plain()
+        err = max_abs_err(got, want)
+        if err != 0:
+            raise AssertionError(f"{name}: kernel differs from its plain version (max |err| {err})")
+        r = self.k.setdefault(name, dict(max_abs_err=0, ms=0.0, plain_ms=0.0, bytes=0, ops=0))
+        if timed:
+            r["ms"] += timed_mean(kernel, reps)
+            r["plain_ms"] += timed_mean(plain, reps_plain)
+            r["bytes"] += work[0]
+            r["ops"] += work[1]
+        return want
+
+    def summary(self, names):
+        return {n: self.k[n] for n in names}
+
+
+def timed_mean(fn, reps: int) -> float:
+    """CUDA-event mean of reps back-to-back calls, no extra warm-up."""
+    import torch
+
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def bound(work_bytes: int, ops: int):
+    """(least ms for the work on the card, what bounds it): bytes over the
+    HBM rate against operations over the int32 peak."""
+    t_bytes = work_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def stage(container: bytes, device):
-    """Parse a container and stage its buckets on `device` as the decode
-    path does: (info, [(staged, block_index_list)])."""
+    """Parse a wide container and stage its buckets on `device` as the
+    decode path does: (info, [(staged, block_index_list)])."""
     from nlzm_tpu_torch.ops import wide_decode as wd
     from nlzm_tpu_torch.parallel.blocks import block_payloads, parse_container
 
     info = parse_container(container)
     return info, wd.stage_buckets(block_payloads(container, info), info.wide_priors,
-                                  info.total_reads, info.dictionary, device=device)
+                                  info.total_reads, wd.dict_tensor(info.dictionary, device),
+                                  device=device)
 
 
-def check_kernels(buckets, block_size: int) -> dict:
-    """Each kernel against its plain version on the same device tensors,
-    bucket by bucket; returns {name: (max_abs_err, ms, plain_ms)} with
-    times summed over the buckets (each a mean_ms)."""
+def expand_work(op_len, block_size, rounds_hint, dict_arr):
+    """lz_expand's (bytes, ops): command arrays in, bytes and counts out;
+    ~10 operations per position for its parent and byte, 3 per doubling
+    round of the hint (without one, the rounds the data needs are not
+    known here and not counted: a lower bound)."""
+    T, B = op_len.shape
+    rounds = rounds_hint or 0
+    byts = 2 * T * B * 4 + (0 if dict_arr is None else dict_arr.numel()) + B * block_size + 4 * B
+    return byts, B * block_size * (10 + 3 * rounds)
+
+
+def check_kernels(tally: Tally, buckets, block_size: int):
+    """Each wide-path kernel against its plain version on the same device
+    tensors, bucket by bucket (times summed over buckets)."""
+    from nlzm_tpu_torch.format.wide import PLANES
     from nlzm_tpu_torch.ops import expand_ops as xo
     from nlzm_tpu_torch.ops import wide_decode as wd
 
-    res = {n: [0, 0.0, 0.0] for n in ("stage_windows", "plane_scan", "assemble", "lz_expand")}
-
-    def hold(name, kernel, plain, reps_plain=KERNEL_REPS):
-        got, want = kernel(), plain()
-        err = max_abs_err(got, want)
-        if err != 0:
-            raise AssertionError(f"{name}: kernel differs from its plain version (max |err| {err})")
-        r = res[name]
-        r[1] += mean_ms(kernel, KERNEL_REPS)
-        r[2] += mean_ms(plain, reps_plain)
-        return want
-
     for staged, _ in buckets:
+        B = staged["hw_cat"].shape[0]
         sw = (staged["hw_cat"], staged["offs"], staged["ends"], staged["WHs"])
-        wins = hold("stage_windows", lambda: wd.stage_windows_fused(*sw),
-                    lambda: wd.stage_windows_fused_ref(*sw))
+        NC = staged["offs"].shape[2]
+        win_elems = sum(NC * B * w for w in staged["WHs"])
+        wins = tally.hold("stage_windows", lambda: wd.stage_windows_fused(*sw),
+                          lambda: wd.stage_windows_fused_ref(*sw),
+                          work=(nbytes(*sw[:3]) + 4 * win_elems, 2 * win_elems))
         ps = (staged["seeds_cat"], wins, staged["n_sym"], staged["steps"], staged["priors"])
-        ys = hold("plane_scan", lambda: wd.plane_scan_fused(*ps),
-                  lambda: wd.plane_scan_fused_ref(*ps), reps_plain=2)
+        # per live symbol: one compare per fence and ~10 state ops; per
+        # chunk, plane and block: ~4 ops per alphabet entry to rebuild
+        alph = [p.alphabets[0] for p in PLANES]
+        n_sym = staged["n_sym"].long().sum(0).tolist()
+        steps = staged["steps"]
+        out_elems = sum(B * steps * p.lanes for p in PLANES)
+        ps_ops = sum(n * (a + 10) for n, a in zip(n_sym, alph)) + NC * B * sum(alph) * 4
+        ys = tally.hold("plane_scan", lambda: wd.plane_scan_fused(*ps),
+                        lambda: wd.plane_scan_fused_ref(*ps), reps_plain=2,
+                        work=(nbytes(staged["seeds_cat"], staged["n_sym"], *wins)
+                              + 4 * out_elems, ps_ops))
         if block_size <= wd.CAP15:
             ys = tuple(a[:, : min(a.shape[1], wd.CAP15)] for a in ys)
         tok_y, lit_y, len_y, lex_y, slot_y = ys
         asm = (tok_y, len_y, lex_y, lit_y, slot_y, staged["bit_half"],
                staged["n_sym"][:, 0].contiguous())
-        op_len, op_val = hold("assemble", lambda: wd.assemble_ops(*asm),
-                              lambda: wd.assemble_ops_ref(*asm))
+        Tc = tok_y.shape[1]
+        op_len, op_val = tally.hold(
+            "assemble", lambda: wd.assemble_ops(*asm), lambda: wd.assemble_ops_ref(*asm),
+            work=(nbytes(*asm) + 8 * Tc * B, 40 * Tc * B))
         ex = (op_len, op_val, block_size, staged["rounds_hint"], staged["dict_arr"])
-        hold("lz_expand", lambda: xo.lz_expand_parallel(*ex),
-             lambda: xo.lz_expand_parallel_ref(*ex))
-    return {n: tuple(v) for n, v in res.items()}
+        tally.hold("lz_expand", lambda: xo.lz_expand_parallel(*ex),
+                   lambda: xo.lz_expand_parallel_ref(*ex),
+                   work=expand_work(op_len, block_size, staged["rounds_hint"], staged["dict_arr"]))
+        hold_low_hints(tally, op_len, op_val, block_size, staged["dict_arr"])
+
+
+def hold_low_hints(tally: Tally, op_len, op_val, block_size: int, dict_arr):
+    """lz_expand at round hints 0 and 1, below the chain depth: parents
+    stay unresolved, and the kernel must fill them as the plain version
+    (and the JAX one) do. Untimed."""
+    from nlzm_tpu_torch.ops import expand_ops as xo
+
+    for hint in (0, 1):
+        lo = (op_len, op_val, block_size, hint, dict_arr)
+        tally.hold("lz_expand", lambda: xo.lz_expand_parallel(*lo),
+                   lambda: xo.lz_expand_parallel_ref(*lo), timed=False)
+
+
+def check_frontier_hints(tally: Tally, container: bytes, device):
+    """hold_low_hints on the frontier buckets (128 KiB blocks with a
+    dictionary: the JAX 2-operand path), commands from the kernels."""
+    from nlzm_tpu_torch.ops import wide_decode as wd
+
+    info, buckets = stage(container, device)
+    for staged, _ in buckets:
+        tok_y, lit_y, len_y, lex_y, slot_y = wd.plane_scan_fused(
+            staged["seeds_cat"], wd.stage_windows_of(staged), staged["n_sym"],
+            staged["steps"], staged["priors"])
+        op_len, op_val = wd.assemble_ops(tok_y, len_y, lex_y, lit_y, slot_y, staged["bit_half"],
+                                         staged["n_sym"][:, 0].contiguous())
+        hold_low_hints(tally, op_len, op_val, info.block_size, staged["dict_arr"])
+
+
+def fsm_work(streams, op_len, op_val, reads: int):
+    """fsm_decode's (bytes, ops) on one bucket: streams in, command arrays
+    out; per taken CDF read 17 fences x 4 operations (compare, adapt)
+    and ~8 of rANS state, per command ~32 of bits, rep table and emit.
+
+    Taken reads, from the commands: a literal 3, a match 2, +2 with a
+    length escape, +2 for a dictionary distance. The commands do not tell
+    a dictionary match from a rep one; `reads` (the bucket's container
+    read counts: CDF reads plus raw-bit reads) gives X = dict + bit reads
+    of dictionary matches, at most 2 each, so at least ceil(X / 3)
+    dictionary matches are counted: a lower bound."""
+    import torch
+
+    lit = op_len == 0
+    match = op_len > 0
+    d = op_val.long()
+    mmin = 2 + (d > 0xFF).long() + (d > 0xFFF).long() + (d > 0xFFFFF).long()
+    esc = match & (op_len.long() - mmin >= 7)
+    n_lit, n_match, n_esc = (int(torch.count_nonzero(x)) for x in (lit, match, esc))
+    x = reads - 3 * n_lit - 3 * n_match - 2 * n_esc
+    cdf_reads = 3 * n_lit + 2 * n_match + 2 * n_esc + 2 * -(-max(x, 0) // 3)
+    return nbytes(streams, op_len, op_val), cdf_reads * (4 * 17 + 8) + (n_lit + n_match) * 32
+
+
+def check_kernels_v1(tally: Tally, buckets, info):
+    """fsm_decode and lz_expand against their plain versions on the v1
+    buckets (the plain fsm timed once, its comparison call the warm-up)."""
+    from nlzm_tpu_torch.ops import decode_v2 as dv
+    from nlzm_tpu_torch.ops import expand_ops as xo
+
+    block_size = info.block_size
+    for streams, num_steps, idx in buckets:
+        op_len, op_val = dv.fsm_decode_v2(streams, num_steps)  # for the work count
+        work = fsm_work(streams, op_len, op_val, sum(info.total_reads[b] for b in idx))
+        op_len, op_val = tally.hold(
+            "fsm_decode", lambda: dv.fsm_decode_v2(streams, num_steps),
+            lambda: dv.fsm_decode_v2_ref(streams, num_steps), reps=FSM_REPS, reps_plain=1,
+            work=work)
+        ex = (op_len, op_val, block_size)
+        tally.hold("lz_expand_v1", lambda: xo.lz_expand_parallel(*ex),
+                   lambda: xo.lz_expand_parallel_ref(*ex), reps_plain=3,
+                   work=expand_work(op_len, block_size, None, None))
 
 
 def counters():
+    from nlzm_tpu_torch.ops import decode_v2 as dv
     from nlzm_tpu_torch.ops import expand_ops as xo
     from nlzm_tpu_torch.ops import wide_decode as wd
 
@@ -158,107 +362,191 @@ def counters():
         "plane_scan": wd.plane_scan_fused,
         "assemble": wd.assemble_ops,
         "lz_expand": xo.lz_expand_parallel,
+        "fsm_decode": dv.fsm_decode_v2,
     }
 
 
-def decode_path(label: str, data: bytes, container: bytes, card: str, device) -> dict:
-    """Decode on `device` with the launch counts zeroed just before and
-    read just after; check the bytes; time the decode. Returns the counts."""
-    from nlzm_tpu_torch.ops import wide_decode as wd
-    from nlzm_tpu_torch.parallel.blocks import decode_container
-
+def launched(label: str, need, run):
+    """run() with every launch count set to 0 just before and read just
+    after; fails unless every kernel in `need` launched. Returns (run's
+    result, the counts)."""
     fns = counters()
     for fn in fns.values():
         fn.launches = 0
-    out = decode_container(container, device=device)
+    res = run()
     launches = {n: fn.launches for n, fn in fns.items()}
-    if out != data:
-        raise AssertionError(f"{label}: decoded bytes differ from the input")
-    missing = [n for n, k in launches.items() if k <= 0]
+    missing = [n for n in need if launches[n] <= 0]
     if missing:
         raise AssertionError(f"{label}: kernels not launched on the main path: {missing}")
+    return res, launches
+
+
+def decode_path(label: str, data: bytes, container: bytes, card: str, device, need,
+                staged_run=None) -> dict:
+    """Decode on `device` through launched(); check the bytes; time the
+    decode (and staged_run(), the device pipeline over buckets already on
+    the card, when given). Returns the counts."""
+    from nlzm_tpu_torch.parallel.blocks import decode_container, parse_container
+
+    out, launches = launched(label, need, lambda: decode_container(container, device=device))
+    if out != data:
+        raise AssertionError(f"{label}: decoded bytes differ from the input")
 
     e2e = best_ms(lambda: decode_container(container, device=device), REPS)
-    info, buckets = stage(container, device)
-    block_size = info.block_size
-
-    def staged_run():
-        for staged, _ in buckets:
-            wd.decode_wide_staged(staged, block_size)
-
-    dev_ms = best_ms(staged_run, REPS)
-    emit({
+    info = parse_container(container)
+    line = {
         "phase": label, "ok": True, "bytes": len(data), "container_bytes": len(container),
-        "blocks": len(info.comp_sizes), "buckets": len(buckets), "launches": launches,
+        "blocks": len(info.comp_sizes), "launches": launches,
         "e2e_ms": e2e, "e2e_MBps": len(data) / e2e / 1e3,
-        "staged_ms": dev_ms, "staged_MBps": len(data) / dev_ms / 1e3,
-        "timing": f"CUDA events, best of {REPS}", "card": card,
-    })
+    }
+    if staged_run is not None:
+        dev_ms = best_ms(staged_run, REPS)
+        line.update(staged_ms=dev_ms, staged_MBps=len(data) / dev_ms / 1e3)
+    line.update(timing=f"CUDA events, best of {REPS}", card=card)
+    emit(line)
     return launches
 
 
 def corrupt_copy(container: bytes) -> bytes:
-    """The container with the first tok-plane renorm pair of block 0
+    """The wide container with the first tok-plane renorm pair of block 0
     flipped (the live-stream flip of tests/test_dict.py)."""
-    from nlzm_tpu_torch.ops.wide_decode import NP, PLANES, chunk_schedule, padded_steps
+    from nlzm_tpu_torch.format.wide import HDR_BYTES, N_PLANES, PLANES, chunk_schedule, padded_steps
     from nlzm_tpu_torch.parallel.blocks import block_payloads, parse_container
 
-    hdr_bytes = 8 * NP + 4  # per plane: u32 count, u32 stream bytes; then u32 bits bytes
     info = parse_container(container)
     payload = block_payloads(container, info)[0]
     tables = 0
-    for i in range(NP):
+    for i in range(N_PLANES):
         sym_count = int.from_bytes(payload[8 * i : 8 * i + 4], "big")
         tables += 2 * (len(chunk_schedule(padded_steps(sym_count, PLANES[i].lanes))) - 1)
     blob = bytearray(container)
-    blob[info.payload_off + hdr_bytes + tables + 4 * PLANES[0].lanes] ^= 0xFF
+    blob[info.payload_off + HDR_BYTES + tables + 4 * PLANES[0].lanes] ^= 0xFF
     return bytes(blob)
 
 
-def run(device, ship_bytes: int, frontier_bytes: int, card: str):
-    """Phases 3-6 on `device`; returns (kernel results, main-path launches)."""
-    from bench import build_corpus
-    from nlzm_tpu_torch.parallel.blocks import (
-        IntegrityError, decode_container, encode_container, native)
+def expect_integrity_error(label, bad: bytes, good: bytes, data: bytes, device):
+    from nlzm_tpu_torch.parallel.blocks import IntegrityError, decode_container
 
-    if not native.available():
-        native.load()  # raises with the build error of the host encoder
-
-    # 3. kernels at the main-path shapes
-    t0 = time.perf_counter()
-    data = build_corpus(ship_bytes)
-    container = encode_container(data, parser="optimal", profile="wide", **SHIP)
-    encode_s = time.perf_counter() - t0
-    info, buckets = stage(container, device)
-    res = check_kernels(buckets, info.block_size)
-    emit({"phase": "kernels", "ok": True, "encode_s": encode_s,
-          "buckets": [len(idx) for _, idx in buckets],
-          "ms": {n: v[1] for n, v in res.items()},
-          "plain_ms": {n: v[2] for n, v in res.items()},
-          "timing": f"CUDA events, mean of {KERNEL_REPS} back-to-back calls (plain "
-                    f"plane_scan: 2) per bucket, summed over buckets", "card": card})
-    del buckets
-
-    # 4. end to end: the main path
-    launches = decode_path("e2e_ship", data, container, card, device)
-
-    # 5. frontier config
-    fdata = build_corpus(frontier_bytes)
-    fcont = encode_container(fdata, parser="optimal", profile="wide", **FRONTIER)
-    decode_path("e2e_frontier", fdata, fcont, card, device)
-
-    # 6. corrupt input, then a valid decode on the same context
     try:
-        decode_container(corrupt_copy(container), device=device)
+        decode_container(bad, device=device)
     except IntegrityError as e:
         caught = str(e)
     else:
-        raise AssertionError("corrupt container decoded without IntegrityError")
-    if decode_container(container, device=device) != data:
-        raise AssertionError("valid decode after the corrupt one failed")
-    emit({"phase": "corrupt", "ok": True, "raised": caught})
+        raise AssertionError(f"{label}: corrupt container decoded without IntegrityError")
+    if decode_container(good, device=device) != data:
+        raise AssertionError(f"{label}: valid decode after the corrupt one failed")
+    emit({"phase": label, "ok": True, "raised": caught})
 
-    return res, launches
+
+def run_wide(tally: Tally, data: bytes, device, card: str):
+    """Phases 3-6; returns (the shipping container, main-path launches)."""
+    from nlzm_tpu_torch.ops import wide_decode as wd
+    from nlzm_tpu_torch.parallel.blocks import encode_container
+
+    t0 = time.perf_counter()
+    container = encode_container(data, parser="optimal", profile="wide", **SHIP)
+    encode_s = time.perf_counter() - t0
+    info, buckets = stage(container, device)
+    check_kernels(tally, buckets, info.block_size)
+    emit({"phase": "kernels", "ok": True, "encode_s": encode_s,
+          "buckets": [len(idx) for _, idx in buckets], "kernels": tally.summary(WIDE_KERNELS),
+          "timing": f"CUDA events, mean of {KERNEL_REPS} back-to-back calls (plain "
+                    f"plane_scan: 2) per bucket, summed over buckets", "card": card})
+
+    def staged_run():
+        for staged, _ in buckets:
+            wd.decode_wide_staged(staged, info.block_size)
+
+    launches = decode_path("e2e_ship", data, container, card, device, WIDE_KERNELS, staged_run)
+    del buckets
+
+    fdata = data[:FRONTIER_BYTES]
+    fcont = encode_container(fdata, parser="optimal", profile="wide", **FRONTIER)
+    decode_path("e2e_frontier", fdata, fcont, card, device, WIDE_KERNELS)
+    check_frontier_hints(tally, fcont, device)
+
+    expect_integrity_error("corrupt", corrupt_copy(container), container, data, device)
+    return container, launches
+
+
+def run_v1(tally: Tally, data: bytes, device, card: str):
+    """Phases 7-11; returns (the bench v1 container, main-path launches)."""
+    from nlzm_tpu_torch.ops.decode_v2 import fsm_decode_v2
+    from nlzm_tpu_torch.parallel.blocks import (
+        decode_v1_staged, encode_container, parse_container, stage_v1_buckets)
+
+    t0 = time.perf_counter()
+    container = encode_container(data, **V1_BENCH)
+    encode_s = time.perf_counter() - t0
+    info = parse_container(container)
+    buckets = stage_v1_buckets(container, info, device=device)
+    check_kernels_v1(tally, buckets, info)
+    emit({"phase": "kernels_v1", "ok": True, "encode_s": encode_s,
+          "buckets": [len(idx) for _, _, idx in buckets],
+          "num_steps": [s for _, s, _ in buckets], "max_cmds": max(info.num_cmds),
+          "kernels": tally.summary(("fsm_decode", "lz_expand_v1")),
+          "timing": f"CUDA events; fsm_decode: mean of {FSM_REPS} calls, plain once after "
+                    f"its comparison call; lz_expand: mean of {KERNEL_REPS}, plain of 3",
+          "card": card})
+
+    def staged_run():
+        for streams, num_steps, _ in buckets:
+            decode_v1_staged(streams, num_steps, info.block_size)
+
+    launches = decode_path("e2e_v1_bench", data, container, card, device, V1_KERNELS,
+                           staged_run)
+    del buckets
+
+    cli_data = data[:V1_CLI_BYTES]
+    decode_path("e2e_v1_cli", cli_data, encode_container(cli_data, **V1_CLI), card, device,
+                V1_KERNELS)
+
+    big = data[:V1_BIG_BYTES]
+    big_c = encode_container(big, **V1_BIG)
+    decode_path("e2e_v1_512k", big, big_c, card, device, V1_KERNELS)
+    big_info = parse_container(big_c)
+    for streams, num_steps, _ in stage_v1_buckets(big_c, big_info, device=device):
+        op_len, op_val = fsm_decode_v2(streams, num_steps)
+        hold_low_hints(tally, op_len, op_val, big_info.block_size, None)
+
+    bad = bytearray(container)
+    bad[info.payload_off + info.comp_sizes[0] // 2] ^= 0x40  # mid-payload bit
+    expect_integrity_error("corrupt_v1", bytes(bad), container, data, device)
+    return container, launches
+
+
+def run_stream(files, device, card: str) -> dict:
+    """Phase 12: each (label, data, container, kernels it must launch)
+    through the file decoder, to a file and in test mode, each call
+    through launched(). Returns {label: the to-file call's counts}."""
+    from nlzm_tpu_torch import decode_container_stream
+
+    build = Path(__file__).resolve().parent / ".build"
+    build.mkdir(exist_ok=True)
+    res, by_file = {}, {}
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        for label, data, container, need in files:
+            src, dst = Path(tmp) / f"{label}.nlzp", Path(tmp) / f"{label}.out"
+            src.write_bytes(container)
+            t0 = time.perf_counter()
+            r, by_file[label] = launched(
+                f"stream {label}", need, lambda: decode_container_stream(
+                    str(src), str(dst), device=device, bucket_bytes=STREAM_BUCKET))
+            secs = time.perf_counter() - t0
+            want_crc = zlib.crc32(data)
+            if dst.read_bytes() != data or r["crc32"] != want_crc or r["out"] != len(data):
+                raise AssertionError(f"stream {label}: output or CRC differs from the input")
+            t, test_counts = launched(
+                f"stream {label} test mode", need, lambda: decode_container_stream(
+                    str(src), None, device=device, bucket_bytes=STREAM_BUCKET))
+            if t["crc32"] != want_crc or t["out"] != len(data):
+                raise AssertionError(f"stream {label}: test mode CRC differs")
+            res[label] = {"seconds": secs, "MBps": len(data) / secs / 1e6,
+                          "buckets": -(-len(data) // STREAM_BUCKET),
+                          "launches": by_file[label], "launches_test_mode": test_counts}
+    emit({"phase": "stream", "ok": True, "bucket_bytes": STREAM_BUCKET, "files": res,
+          "timing": "host clock, one call to file", "card": card})
+    return by_file
 
 
 def main() -> int:
@@ -269,8 +557,11 @@ def main() -> int:
         return 2
 
     # the whole program must be here before anything is reported
-    import bench  # noqa: F401  (the corpus generator)
     from nlzm_tpu_torch import _build
+    from nlzm_tpu_torch.native import available, load
+
+    if not available():
+        load()  # raises with the build error of the host encoder
 
     # 1. device
     card = card_line()
@@ -287,7 +578,12 @@ def main() -> int:
           "ptxas": {n: [ln.strip() for ln in log.splitlines() if "registers" in ln]
                     for n, log in reports.items()}})
 
-    res, launches = run("cuda", SHIP_BYTES, FRONTIER_BYTES, card)
+    tally = Tally()
+    data = build_corpus(SHIP_BYTES)
+    wide_c, wide_launches = run_wide(tally, data, "cuda", card)
+    v1_c, v1_launches = run_v1(tally, data, "cuda", card)
+    stream_launches = run_stream([("wide_ship", data, wide_c, WIDE_KERNELS),
+                                  ("v1_bench", data, v1_c, V1_KERNELS)], "cuda", card)
 
     src = "nlzm_tpu_torch/csrc/"
     replaces = {
@@ -295,13 +591,23 @@ def main() -> int:
         "plane_scan": "nlzm_tpu/ops/wide_decode.py:318",
         "assemble": "nlzm_tpu/ops/wide_decode.py:597",
         "lz_expand": "nlzm_tpu/ops/expand_ops.py:227",
+        "fsm_decode": "nlzm_tpu/ops/decode_v2.py:435",
     }
-    emit({"kernels": [
-        {"name": n, "route": "cuda", "source": f"{src}{n}.cu", "replaces": replaces[n],
-         "launches": launches[n], "max_abs_err": res[n][0], "ms": res[n][1],
-         "plain_ms": res[n][2]}
-        for n in replaces
-    ]})
+    shapes = dict.fromkeys(replaces, "e2e_ship buckets")
+    shapes["fsm_decode"] = "e2e_v1_bench buckets"
+    rows = []
+    for n in replaces:
+        r = tally.k[n]
+        b_ms, b_by = bound(r["bytes"], r["ops"])
+        by_path = {"e2e_ship": wide_launches[n], "e2e_v1_bench": v1_launches[n],
+                   **{f"stream_{f}": c[n] for f, c in stream_launches.items()}}
+        rows.append({
+            "name": n, "route": "cuda", "source": f"{src}{n}.cu", "replaces": replaces[n],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "timed_at": shapes[n],
+        })
+    emit({"kernels": rows})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -1,20 +1,28 @@
-"""nlzm_tpu_torch: the NLZP wide-profile decoder in PyTorch, with CUDA kernels.
+"""nlzm_tpu_torch: the NLZP container decoder in PyTorch, with CUDA kernels.
 
-A port of the device decode path of nlzm_tpu (JAX) to PyTorch on an
-NVIDIA Hopper GPU. The wire format, the host encoder and the container
-parsing are shared with nlzm_tpu by import (its jax-free host modules:
-format/wide.py, parallel/blocks.py, native.py, constants.py); this
-package replaces only the jitted device functions, each by a CUDA kernel
-written by hand (nlzm_tpu_torch/csrc) beside a plain PyTorch version.
+A port of the device decode paths of nlzm_tpu (JAX) to PyTorch on an
+NVIDIA Hopper GPU: the wide-profile and the v1 block decode
+(parallel/blocks.py::decode_container) and the bounded-memory file decode
+(parallel/stream.py::decode_container_stream). Each jitted device function
+of nlzm_tpu on those paths is a CUDA kernel written by hand
+(nlzm_tpu_torch/csrc) beside a plain PyTorch version.
+
+The port keeps its own copies of the host modules it needs (constants,
+format/wide.py decode side, container parsing, the native binding,
+utils/crc32.py), pinned to the originals by tests/test_torch_host.py; it
+imports nothing of nlzm_tpu. Encoding is the native host engine's
+(native/, built at first use).
 
 Every kernel wrapper dispatches on the device of the tensors it is given:
 CPU tensors run the plain version, CUDA tensors launch the kernel (built
-with nvcc at first use into .build/torch_kernels/). Importing this package
+with nvcc at first use into .build/torch_kernels/). Entry points decode on
+"cuda" unless the caller names another device. Importing this package
 needs neither CUDA nor JAX.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
 from .parallel.blocks import decode_container, encode_container
+from .parallel.stream import decode_container_stream
 
-__all__ = ["decode_container", "encode_container", "__version__"]
+__all__ = ["decode_container", "decode_container_stream", "encode_container", "__version__"]

@@ -1,0 +1,182 @@
+"""ctypes binding of the repo's native host engine (native/libnlzmx.so).
+
+A copy of the part of nlzm_tpu/native.py the port calls: block encode and
+decode, threaded v1 block encode, and the native wide encode pipeline.
+native/ is the repo's C++ engine (built by `make -C native` from
+native/src/, at first use); this module loads the same library.
+"""
+
+import ctypes
+import os
+import subprocess
+from functools import lru_cache
+from pathlib import Path
+
+import numpy as np
+
+from .format.wide import priors_blob_size
+
+_NATIVE_DIR = Path(__file__).resolve().parent.parent / "native"
+_LIB_PATH = _NATIVE_DIR / "libnlzmx.so"
+
+_PARSER_IDS = {"greedy": 0, "optimal": 1}
+
+
+class NativeUnavailable(RuntimeError):
+    pass
+
+
+@lru_cache(maxsize=1)
+def load() -> ctypes.CDLL:
+    if not _LIB_PATH.exists():
+        try:
+            subprocess.run(
+                ["make", "-C", str(_NATIVE_DIR)], check=True, capture_output=True
+            )
+        except (OSError, subprocess.CalledProcessError) as e:
+            raise NativeUnavailable(f"cannot build native library: {e}") from e
+    lib = ctypes.CDLL(str(_LIB_PATH))
+
+    c_u8p = ctypes.POINTER(ctypes.c_uint8)
+    c_i64 = ctypes.c_longlong
+    c_i64p = ctypes.POINTER(c_i64)
+    c_i32p = ctypes.POINTER(ctypes.c_int)
+
+    lib.nlzmx_encode_block.restype = c_i64
+    lib.nlzmx_encode_block.argtypes = [c_u8p, c_i64, ctypes.c_int, ctypes.c_int, c_u8p, c_i64, c_i64p]
+
+    lib.nlzmx_decode_block.restype = c_i64
+    lib.nlzmx_decode_block.argtypes = [c_u8p, c_i64, ctypes.c_int, c_u8p, c_i64]
+
+    lib.nlzmx_wide_encode_data.restype = ctypes.c_int
+    lib.nlzmx_wide_encode_data.argtypes = [
+        c_u8p, c_i64, c_i64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, c_u8p, c_i64, c_i64p, c_u8p, c_i32p, c_i32p, c_i64p,
+        c_u8p, c_i64, c_u8p, ctypes.c_int,
+    ]
+
+    lib.nlzmx_encode_blocks.restype = ctypes.c_int
+    lib.nlzmx_encode_blocks.argtypes = [
+        c_u8p, c_i64, c_i64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        c_u8p, c_i64, c_i64p, c_i64p, c_i64p,
+    ]
+    return lib
+
+
+def available() -> bool:
+    try:
+        load()
+        return True
+    except NativeUnavailable:
+        return False
+
+
+def _u8p(arr: np.ndarray):
+    return arr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+def encode_block(data: bytes, hist_bits: int, parser: str = "optimal"):
+    """Encode one block -> (payload_bytes, total_reads, num_cmds)."""
+    lib = load()
+    src = np.frombuffer(data, dtype=np.uint8)
+    cap = max(4096, len(data) * 2 + 65536)
+    dst = np.empty(cap, dtype=np.uint8)
+    stats = np.zeros(2, dtype=np.int64)
+    sz = lib.nlzmx_encode_block(
+        _u8p(src) if len(src) else _u8p(dst),
+        len(src),
+        hist_bits,
+        _PARSER_IDS[parser],
+        _u8p(dst),
+        cap,
+        stats.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)),
+    )
+    if sz < 0:
+        raise RuntimeError("native encode failed (capacity)")
+    return dst[:sz].tobytes(), int(stats[0]), int(stats[1])
+
+
+def decode_block(payload: bytes, hist_bits: int, out_cap: int) -> bytes:
+    lib = load()
+    src = np.frombuffer(payload, dtype=np.uint8)
+    dst = np.empty(max(out_cap, 1), dtype=np.uint8)
+    got = lib.nlzmx_decode_block(_u8p(src), len(src), hist_bits, _u8p(dst), out_cap)
+    if got < 0:
+        raise RuntimeError("native decode failed")
+    return dst[:got].tobytes()
+
+
+def encode_blocks(data: bytes, block_size: int, hist_bits: int, parser: str = "optimal"):
+    """Threaded block encode -> (list of payloads, reads, cmds)."""
+    lib = load()
+    n = len(data)
+    nblocks = (n + block_size - 1) // block_size
+    if nblocks == 0:
+        return [], [], []
+    threads = min(os.cpu_count() or 1, nblocks)
+    src = np.frombuffer(data, dtype=np.uint8)
+    block_cap = block_size * 2 + 65536
+    dst = np.empty(nblocks * block_cap, dtype=np.uint8)
+    sizes = np.zeros(nblocks, dtype=np.int64)
+    reads = np.zeros(nblocks, dtype=np.int64)
+    cmds = np.zeros(nblocks, dtype=np.int64)
+    p64 = ctypes.POINTER(ctypes.c_longlong)
+    rc = lib.nlzmx_encode_blocks(
+        _u8p(src), n, block_size, hist_bits, _PARSER_IDS[parser], threads,
+        _u8p(dst), block_cap,
+        sizes.ctypes.data_as(p64), reads.ctypes.data_as(p64), cmds.ctypes.data_as(p64),
+    )
+    if rc != 0:
+        raise RuntimeError("native block encode failed")
+    payloads = [dst[b * block_cap : b * block_cap + sizes[b]].tobytes() for b in range(nblocks)]
+    return payloads, reads.tolist(), cmds.tolist()
+
+
+def wide_encode_pipeline(data: bytes, block_size: int, hist_bits: int, depth_cap: int = 16,
+                         dictionary: bytes | None = None):
+    """Full native wide-profile encode: parse -> lift(-split) ->
+    rep-classify -> plane encode, one library call, with the container
+    priors built from these blocks. dictionary: shared-dictionary bytes
+    preloaded before every block, or None.
+    Returns (payloads, priors_blob, depths, ncmds)."""
+    lib = load()
+    n = len(data)
+    nblocks = (n + block_size - 1) // block_size
+    if nblocks == 0:
+        return [], b"", np.zeros(0, np.int32), []
+    threads = min(16, os.cpu_count() or 1)
+    i32p = ctypes.POINTER(ctypes.c_int)
+    i64p = ctypes.POINTER(ctypes.c_longlong)
+    src = np.frombuffer(data, dtype=np.uint8)
+    out_cap = n + nblocks * 70000 + (1 << 20)
+    out = np.empty(out_cap, np.uint8)
+    sizes = np.zeros(nblocks, np.int64)
+    depths = np.zeros(nblocks, np.int32)
+    ncmds = np.zeros(nblocks, np.int32)
+    priors = np.zeros(priors_blob_size(), np.uint8)
+    counter = np.zeros(1, np.int64)
+    darr = np.frombuffer(dictionary, dtype=np.uint8) if dictionary else None
+    while True:
+        rc = lib.nlzmx_wide_encode_data(
+            _u8p(src), n, block_size, hist_bits, depth_cap, 1, threads,
+            _u8p(out), out_cap, sizes.ctypes.data_as(i64p), _u8p(priors),
+            depths.ctypes.data_as(i32p), ncmds.ctypes.data_as(i32p),
+            counter.ctypes.data_as(i64p),
+            _u8p(darr) if darr is not None else None,
+            len(darr) if darr is not None else 0,
+            None,  # no priors_in: build the priors from these blocks
+            0,  # not strict
+        )
+        if rc != 1:
+            break
+        # rc == 1: out_cap overflow (pathological expansion) - regrow
+        out_cap *= 2
+        out = np.empty(out_cap, np.uint8)
+    if rc != 0:
+        raise RuntimeError(f"native wide encode failed (rc={rc})")
+    payloads = []
+    off = 0
+    for b in range(nblocks):
+        payloads.append(out[off : off + int(sizes[b])].tobytes())
+        off += int(sizes[b])
+    return payloads, priors.tobytes(), depths, [int(c) for c in ncmds]

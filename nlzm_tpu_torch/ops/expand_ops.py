@@ -6,7 +6,9 @@ modular closed form m - d + ((i - m) mod d) jumps to before the command
 start m in one hop. Pointer doubling over those parents resolves every
 ancestor in log2(depth) rounds; one gather then fills the bytes. With a
 shared dictionary of D bytes, parents run in shifted coordinates: [0, D)
-is the dictionary (terminal), [D, D + N) the block.
+is the dictionary (terminal), [D, D + N) the block. A parent still
+unresolved when the rounds end (a round hint below the chain depth) is
+filled as the JAX fills do, from the latest literal at or before it.
 
 lz_expand_parallel dispatches on the device of its inputs: CUDA tensors
 launch csrc/lz_expand.cu, CPU tensors run lz_expand_parallel_ref.
@@ -15,6 +17,8 @@ launch csrc/lz_expand.cu, CPU tensors run lz_expand_parallel_ref.
 import torch
 
 from .. import _build
+
+_PACK_MAX = 1 << 15  # nlzm_tpu's packed-sort block limit (ops/sort_gather.py PACK_MAX)
 
 
 def _max_rounds(block_size: int) -> int:
@@ -47,9 +51,19 @@ def lz_expand_parallel_ref(op_len, op_val, block_size: int, rounds_hint=None,
     parent = (par + D).clamp(0, D + N - 1)
 
     lit_at = torch.zeros(B, N, dtype=torch.long, device=dev)
+    lit_pos = torch.full((B, N), -1, dtype=torch.long, device=dev)
     is_lit = (ol == 0) & (starts < N)
     rows = torch.arange(B, device=dev)[:, None].expand(B, T)
     lit_at[rows[is_lit], starts[is_lit]] = ov[is_lit] & 0xFF
+    lit_pos[rows[is_lit], starts[is_lit]] = starts[is_lit]
+    # an unresolved parent (rounds_hint below the chain depth) takes the
+    # byte of the latest literal at or before it, as the JAX fills do;
+    # with none, the last dictionary byte on the JAX sort path with a
+    # dictionary (its fill sources include the dictionary), else 0
+    use_sort = N <= _PACK_MAX and D + N <= 1 << 16
+    last = lit_pos.cummax(1).values
+    none = dict_arr[D - 1].long() if use_sort and D else 0
+    fill = torch.where(last >= 0, lit_at.gather(1, last.clamp(min=0)), none)
 
     def compose(p):
         g = p.gather(1, (p - D).clamp(0, N - 1))
@@ -67,10 +81,17 @@ def lz_expand_parallel_ref(op_len, op_val, block_size: int, rounds_hint=None,
         for _ in range(min(int(rounds_hint), rounds)):
             parent = compose(parent)
 
-    byte = lit_at.gather(1, (parent - D).clamp(0, N - 1))
+    # the JAX sort fill with a dictionary queries min(parent, D + N - 2)
+    # (its top key collides with the sort's pad key) and patches position
+    # N - 1 rooted at itself with the literal there, or 0
+    q = parent.clamp(max=D + N - 2) if use_sort and D else parent
+    byte = fill.gather(1, (q - D).clamp(0, N - 1))
     if D:
-        dict_b = dict_arr.long()[parent.clamp(0, D - 1)]
-        byte = torch.where(parent < D, dict_b, byte)
+        dict_b = dict_arr.long()[q.clamp(0, D - 1)]
+        byte = torch.where(q < D, dict_b, byte)
+        if use_sort:
+            corner = parent[:, N - 1] == D + N - 1
+            byte[:, N - 1] = torch.where(corner, lit_at[:, N - 1], byte[:, N - 1])
     out = torch.where(pos < produced[:, None].long(), byte, 0).to(torch.uint8)
     return out, produced
 
@@ -98,15 +119,17 @@ def lz_expand_parallel(op_len, op_val, block_size: int, rounds_hint=None, dict_a
     pa = torch.empty(B, N, dtype=torch.int32, device=dev)
     pb = torch.empty_like(pa)
     lit_at = torch.empty(B, N, dtype=torch.uint8, device=dev)
+    lit_mask = torch.empty(B, (N + 31) // 32, dtype=torch.int32, device=dev)
     out = torch.empty(B, N, dtype=torch.uint8, device=dev)
     produced = torch.empty(B, dtype=torch.int32, device=dev)
-    fn = _build.entry("lz_expand", "nlzm_lz_expand", 8, 6)
+    fn = _build.entry("lz_expand", "nlzm_lz_expand", 9, 6)
     rounds = -1 if rounds_hint is None else int(rounds_hint)
     _build.launch(
         fn,
         [op_len.data_ptr(), op_val.data_ptr(),
          None if dict_arr is None else dict_arr.data_ptr(),
-         pa.data_ptr(), pb.data_ptr(), lit_at.data_ptr(), out.data_ptr(), produced.data_ptr()],
+         pa.data_ptr(), pb.data_ptr(), lit_at.data_ptr(), lit_mask.data_ptr(), out.data_ptr(),
+         produced.data_ptr()],
         [T, B, N, D, rounds, _max_rounds(N)],
         dev,
     )
@@ -116,3 +139,12 @@ def lz_expand_parallel(op_len, op_val, block_size: int, rounds_hint=None, dict_a
 
 lz_expand_parallel.launches = 0
 
+
+def scatter_blocks(parts, n_blocks: int, block_size: int, total_len: int, device) -> bytes:
+    """Decoded buckets [(out [Bk, block_size] uint8, block_index_list), ...]
+    on `device` -> host bytes: block b at b * block_size, cut to total_len."""
+    dev = torch.device(device)
+    full = torch.zeros(n_blocks, block_size, dtype=torch.uint8, device=dev)
+    for out, idx in parts:
+        full[torch.as_tensor(idx, device=dev)] = out
+    return full.cpu().numpy().tobytes()[:total_len]

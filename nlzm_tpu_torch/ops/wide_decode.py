@@ -26,8 +26,9 @@ import functools
 import numpy as np
 import torch
 
-from nlzm_tpu.constants import CDF_SCALE_BITS, CDF_SCALE_TOTAL
-from nlzm_tpu.format.wide import (
+from .. import _build
+from ..constants import CDF_SCALE_BITS, CDF_SCALE_TOTAL
+from ..format.wide import (
     N_PLANES,
     PLANES,
     TOK_DICT,
@@ -38,9 +39,7 @@ from nlzm_tpu.format.wide import (
     parse_payload,
     parse_priors,
 )
-
-from .. import _build
-from .expand_ops import lz_expand_parallel
+from .expand_ops import lz_expand_parallel, scatter_blocks
 from .sort_gather import compact_by_rank, gather_rows
 
 NP = N_PLANES
@@ -528,21 +527,26 @@ def decode_wide_staged(staged, block_size: int):
     )
 
 
-def stage_buckets(payloads, priors_blob: bytes | None, max_depth, dictionary: bytes | None,
-                  *, device):
+def dict_tensor(dictionary: bytes | None, device):
+    """The container's shared dictionary as a [D] uint8 tensor on
+    `device`, or None for none."""
+    if not dictionary:
+        return None
+    return torch.as_tensor(np.frombuffer(dictionary, np.uint8).copy(), device=torch.device(device))
+
+
+def stage_buckets(payloads, priors_blob: bytes | None, max_depth, dict_arr, *, device):
     """prepare_wide_bucketed, with each bucket's doubling budget and the
     shared dictionary set: [(staged, block_index_list), ...] on `device`.
 
     max_depth: the chain depth of each block (the container's
-    total_reads); each bucket runs the exact budget of its deepest block.
-    dictionary: the container's shared dictionary (virtual history before
-    every block) or None.
+    total_reads, or its slice for these payloads); each bucket runs the
+    exact budget of its deepest block. dict_arr: the container's shared
+    dictionary (virtual history before every block) from dict_tensor, or
+    None.
     """
     dev = torch.device(device)
     buckets = prepare_wide_bucketed(payloads, priors_blob, device=dev)
-    dict_arr = None
-    if dictionary:
-        dict_arr = torch.as_tensor(np.frombuffer(dictionary, np.uint8).copy(), device=dev)
     for staged, idx in buckets:
         staged["rounds_hint"] = rounds_hint_of(max((max_depth[b] for b in idx), default=0))
         staged["dict_arr"] = dict_arr
@@ -551,13 +555,11 @@ def stage_buckets(payloads, priors_blob: bytes | None, max_depth, dictionary: by
 
 def decode_wide_blocks(
     payloads, block_size: int, total_len: int, priors_blob: bytes | None,
-    max_depth, dictionary: bytes | None, *, device,
+    max_depth, dict_arr, *, device,
 ) -> bytes:
     """Decode wide-profile block payloads on `device` (arguments as in
     stage_buckets); blocks land at block_size strides, cut to total_len."""
-    dev = torch.device(device)
-    full = torch.zeros(len(payloads), block_size, dtype=torch.uint8, device=dev)
-    for staged, idx in stage_buckets(payloads, priors_blob, max_depth, dictionary, device=dev):
-        out, _produced = decode_wide_staged(staged, block_size)
-        full[torch.as_tensor(idx, device=dev)] = out
-    return full.cpu().numpy().tobytes()[:total_len]
+    parts = [(decode_wide_staged(staged, block_size)[0], idx)
+             for staged, idx in stage_buckets(payloads, priors_blob, max_depth, dict_arr,
+                                              device=device)]
+    return scatter_blocks(parts, len(payloads), block_size, total_len, device)

@@ -1,40 +1,324 @@
-"""NLZP container decode on a PyTorch device.
+"""NLZP block container: host encode, parsing, and decode on a PyTorch device.
 
-Counterpart of the wide branch of nlzm_tpu/parallel/blocks.py::
-decode_container. Container parsing, CRC verification and the host
-encoder are nlzm_tpu's own jax-free host code, imported unchanged:
-encode_container is re-exported as is (host encode is the only encode of
-the port so far).
+Counterpart of nlzm_tpu/parallel/blocks.py. The container code (header
+constants, ContainerInfo, parse_container, CRC verification, payload
+slicing, dictionary sampling and (de)compression) is a copy of the
+original; tests/test_torch_host.py pins its output to it. The encoder is
+the native host one only: the wide profile through
+native.wide_encode_pipeline, v1 through native.encode_blocks. Decode runs
+both profiles on the device: wide through ops/wide_decode.py, v1 through
+ops/decode_v2.py (fsm_decode_v2) and ops/expand_ops.py.
+
+Container layout (all integers big-endian):
+
+    0   magic  b"NLZP"
+    4   u8     version
+    5   u8     hist_bits     (per-block window)
+    6   u8     frame_bits
+    7   u8     flags         (bit 0: u32 CRC32 of the plain data follows)
+    8   u32    block_size    (uncompressed bytes per block; last may be short)
+    12  u64    total uncompressed length
+    20  u32    num_blocks
+    [u32 crc32 when flagged] [priors blob] [u32 raw, u32 comp, dictionary]
+    per block: u32 comp_size | u32 total_reads | u32 num_cmds
+               (wide profile: the reads slot carries the block's max
+                literal-ancestor chain depth)
+    ... concatenated block payloads
 """
 
-from nlzm_tpu import native  # noqa: F401  (re-exported: the host encoder's library)
-from nlzm_tpu.parallel.blocks import (  # noqa: F401  (re-exported)
-    IntegrityError,
-    _verified,
-    block_payloads,
-    encode_container,
-    parse_container,
-)
+import io
+import struct
+from dataclasses import dataclass
 
-from ..ops.wide_decode import decode_wide_blocks
+import numpy as np
+import torch
+
+from .. import native
+from ..constants import frame_bits_for
+from ..format.wide import priors_blob_size
+from ..ops.decode_v2 import fsm_decode_v2
+from ..ops.expand_ops import lz_expand_parallel, scatter_blocks
+from ..ops.wide_decode import decode_wide_blocks, dict_tensor
+from ..utils.crc32 import crc32
+
+MAGIC = b"NLZP"
+VERSION = 4
+_HDR = struct.Struct(">4sBBBBIQI")
+_BLK = struct.Struct(">III")
+FLAG_CRC32 = 0x01  # u32be CRC of the uncompressed data follows the header
+FLAG_WIDE = 0x02  # blocks use the wide profile
+FLAG_PRIORS = 0x04  # container-level wide warm-start priors blob follows
+FLAG_DICT = 0x08  # shared dictionary follows (u32 raw len, u32 comp len, v1 frames)
+
+DEFAULT_BLOCK_SIZE = 1 << 17  # 128 KB: 5 frames/block at hist_bits 17
+WIDE_MAX_BLOCK = 131072
 
 
-def decode_container(data: bytes, device) -> bytes:
-    """Decode a wide-profile NLZP container on `device` ("cuda", "cpu",
-    a torch.device), CRC-verified when the container carries a CRC.
+class IntegrityError(ValueError):
+    pass
 
-    Raises IntegrityError on a CRC mismatch and NotImplementedError for a
-    v1 (non-wide) container.
+
+def sample_dict(data: bytes, dict_size: int, segment: int = 2048) -> bytes:
+    """Deterministic shared-dictionary sampling: evenly spaced segments,
+    in their original order."""
+    if dict_size <= 0 or len(data) <= dict_size:
+        return b""
+    nseg = max(1, dict_size // segment)
+    stride = len(data) / nseg
+    parts = []
+    for i in range(nseg):
+        off = int(i * stride)
+        parts.append(data[off : off + segment])
+    return b"".join(parts)[:dict_size]
+
+
+def _compress_dict(dictionary: bytes) -> bytes:
+    payload, _, _ = native.encode_block(dictionary, hist_bits_for_block(len(dictionary)), "optimal")
+    return payload
+
+
+def _decompress_dict(payload: bytes, raw_len: int) -> bytes:
+    return native.decode_block(payload, hist_bits_for_block(raw_len), raw_len)
+
+
+@dataclass
+class ContainerInfo:
+    hist_bits: int
+    frame_bits: int
+    block_size: int
+    total_len: int
+    comp_sizes: list
+    total_reads: list
+    num_cmds: list
+    payload_off: int
+    crc32: int | None = None
+    wide: bool = False
+    wide_priors: bytes | None = None
+    dictionary: bytes | None = None
+
+
+def hist_bits_for_block(block_size: int) -> int:
+    """Window covering the whole block (blocks never slide)."""
+    return max(12, (max(block_size, 2) - 1).bit_length())
+
+
+def encode_container(
+    data: bytes,
+    block_size: int = DEFAULT_BLOCK_SIZE,
+    parser: str = "greedy",
+    engine: str = "auto",
+    profile: str = "v1",
+    depth_cap: int = 8,
+    dict_size: int = 0,
+) -> bytes:
+    """Block encode with the native host engine; the container bytes are
+    those nlzm_tpu's encode_container writes with its native engine.
+
+    profile="wide" needs parser="optimal" (the native wide pipeline);
+    depth_cap bounds every byte's literal-ancestor chain depth, dict_size
+    > 0 samples a shared dictionary. engine: "auto" or "native".
+    Raises NotImplementedError for what only a device encode does here
+    (engine="tpu", or a wide greedy parse: ROADMAP.md queue A items 8 and
+    10), NativeUnavailable when the native library cannot be built.
+    """
+    if engine not in ("auto", "native") or (profile == "wide" and parser != "optimal"):
+        raise NotImplementedError(
+            f"engine={engine!r}, profile={profile!r}, parser={parser!r}: the port encodes "
+            "with the native host engine only (wide: parser='optimal'); the device "
+            "encode and parse are ROADMAP.md queue A items 8 and 10"
+        )
+    dictionary = b""
+    if dict_size and profile == "wide":
+        dictionary = sample_dict(data, dict_size)
+    hist_bits = hist_bits_for_block(len(dictionary) + block_size)
+    num_blocks = (len(data) + block_size - 1) // block_size if data else 0
+
+    flags = FLAG_CRC32
+    priors_blob = b""
+    meta, payloads = [], []
+    if profile == "wide":
+        if block_size > WIDE_MAX_BLOCK:
+            raise ValueError("wide profile caps blocks at 128 KiB")
+        flags |= FLAG_WIDE
+        if num_blocks:
+            payloads, priors_blob, depths, ncmds = native.wide_encode_pipeline(
+                data, block_size, hist_bits, depth_cap=depth_cap,
+                dictionary=dictionary or None,
+            )
+            if priors_blob:
+                flags |= FLAG_PRIORS
+            if dictionary:
+                flags |= FLAG_DICT
+            # the per-block "reads" slot carries the chain depth
+            meta = [(len(p), int(d), c) for p, d, c in zip(payloads, depths, ncmds)]
+        else:
+            dictionary = b""
+    elif num_blocks:
+        payloads, reads, cmds = native.encode_blocks(data, block_size, hist_bits, parser)
+        meta = list(zip(map(len, payloads), reads, cmds))
+
+    out = io.BytesIO()
+    out.write(_HDR.pack(MAGIC, VERSION, hist_bits, frame_bits_for(hist_bits), flags,
+                        block_size, len(data), num_blocks))
+    out.write(struct.pack(">I", crc32(data)))
+    if flags & FLAG_PRIORS:
+        out.write(priors_blob)
+    if flags & FLAG_DICT:
+        dcomp = _compress_dict(dictionary)
+        out.write(struct.pack(">II", len(dictionary), len(dcomp)))
+        out.write(dcomp)
+    for m in meta:
+        out.write(_BLK.pack(*m))
+    for p in payloads:
+        out.write(p)
+    return out.getvalue()
+
+
+def parse_container(data: bytes) -> ContainerInfo:
+    magic, version, hist_bits, frame_bits, flags, block_size, total_len, num_blocks = (
+        _HDR.unpack_from(data, 0))
+    if magic != MAGIC:
+        raise ValueError("not an NLZP container")
+    if version != VERSION:
+        raise ValueError(f"unsupported NLZP version {version}")
+    off = _HDR.size
+    crc = None
+    if flags & FLAG_CRC32:
+        (crc,) = struct.unpack_from(">I", data, off)
+        off += 4
+    priors = None
+    if flags & FLAG_PRIORS:
+        n = priors_blob_size()
+        priors = data[off : off + n]
+        off += n
+    dictionary = None
+    if flags & FLAG_DICT:
+        raw_len, comp_len = struct.unpack_from(">II", data, off)
+        off += 8
+        dictionary = _decompress_dict(data[off : off + comp_len], raw_len)
+        if len(dictionary) != raw_len:
+            raise IntegrityError("corrupt container dictionary")
+        off += comp_len
+    comp_sizes, reads, cmds = [], [], []
+    for _ in range(num_blocks):
+        cs, rd, nc = _BLK.unpack_from(data, off)
+        comp_sizes.append(cs)
+        reads.append(rd)
+        cmds.append(nc)
+        off += _BLK.size
+    return ContainerInfo(
+        hist_bits=hist_bits,
+        frame_bits=frame_bits,
+        block_size=block_size,
+        total_len=total_len,
+        comp_sizes=comp_sizes,
+        total_reads=reads,
+        num_cmds=cmds,
+        payload_off=off,
+        crc32=crc,
+        wide=bool(flags & FLAG_WIDE),
+        wide_priors=priors,
+        dictionary=dictionary,
+    )
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def stage_v1_payloads(payloads, num_cmds, *, device):
+    """Bucket v1 block payloads by command count before the FSM scan.
+
+    The scan's step count is static per batch, sized by the worst block:
+    1 bucket below 1024 blocks and 2 from there on (the JAX package's
+    measured break-even). Returns [(streams [Bk, Sk] uint8 on `device`,
+    num_steps, block_idx_list), ...]; the streams are zero padded
+    (terminator and window slack).
+    """
+    B = len(payloads)
+    n_buckets = 2 if B >= 1024 else 1
+    order = sorted(range(B), key=lambda b: num_cmds[b])
+    out = []
+    for k in range(n_buckets):
+        idx = order[k * B // n_buckets : (k + 1) * B // n_buckets]
+        if not idx:
+            continue
+        s = _round_up(max(len(payloads[b]) for b in idx) + 24, 256)
+        arr = np.zeros((len(idx), s), np.uint8)
+        for row, b in enumerate(idx):
+            arr[row, : len(payloads[b])] = np.frombuffer(payloads[b], np.uint8)
+        # +1 step: every block spends one scan step on its terminator header
+        num_steps = _round_up(max(num_cmds[b] for b in idx) + 1, 256)
+        out.append((torch.as_tensor(arr, device=torch.device(device)), num_steps, idx))
+    return out
+
+
+def stage_v1_buckets(data: bytes, info: ContainerInfo, *, device):
+    """stage_v1_payloads over a parsed container's blocks."""
+    return stage_v1_payloads(block_payloads(data, info), info.num_cmds, device=device)
+
+
+def decode_v1_staged(streams, num_steps: int, block_size: int):
+    """FSM decode + LZ expansion of one staged v1 bucket -> ([Bk, N] u8,
+    produced [Bk])."""
+    op_len, op_val = fsm_decode_v2(streams, num_steps)
+    return lz_expand_parallel(op_len, op_val, block_size)
+
+
+def decode_v1_blocks(payloads, num_cmds, block_size: int, total_len: int, *, device) -> bytes:
+    """Decode v1 block payloads on `device`; blocks land at block_size
+    strides, cut to total_len."""
+    parts = [(decode_v1_staged(streams, num_steps, block_size)[0], idx)
+             for streams, num_steps, idx in stage_v1_payloads(payloads, num_cmds, device=device)]
+    return scatter_blocks(parts, len(payloads), block_size, total_len, device)
+
+
+def pack_streams(data: bytes, info: ContainerInfo) -> np.ndarray:
+    """[B, S] uint8: per-block payloads, zero padded (terminator + window slack)."""
+    n = len(info.comp_sizes)
+    s = _round_up(max(info.comp_sizes, default=1) + 24, 256)
+    arr = np.zeros((n, s), dtype=np.uint8)
+    off = info.payload_off
+    for b, cs in enumerate(info.comp_sizes):
+        arr[b, :cs] = np.frombuffer(data, dtype=np.uint8, count=cs, offset=off)
+        off += cs
+    return arr
+
+
+def block_payloads(data: bytes, info: ContainerInfo) -> list:
+    """Per-block payload byte strings of a parsed container."""
+    out = []
+    off = info.payload_off
+    for cs in info.comp_sizes:
+        out.append(data[off : off + cs])
+        off += cs
+    return out
+
+
+def _verified(out: bytes, info: ContainerInfo) -> bytes:
+    if info.crc32 is not None:
+        got = crc32(out)
+        if got != info.crc32:
+            raise IntegrityError(f"CRC mismatch: stored {info.crc32:08X}, decoded {got:08X}")
+    return out
+
+
+def decode_container(data: bytes, device="cuda") -> bytes:
+    """Decode an NLZP container (wide or v1 profile) on `device` ("cuda",
+    "cpu", a torch.device), CRC-verified when the container carries a CRC.
+
+    Raises IntegrityError on a CRC mismatch.
     """
     info = parse_container(data)
     if not info.comp_sizes:
         return _verified(b"", info)
-    if not info.wide:
-        raise NotImplementedError(
-            "v1 (reference-wire) containers are not ported yet: ROADMAP.md queue A item 9"
+    dev = torch.device(device)
+    if info.wide:
+        out = decode_wide_blocks(
+            block_payloads(data, info), info.block_size, info.total_len, info.wide_priors,
+            info.total_reads, dict_tensor(info.dictionary, dev), device=dev,
         )
-    out = decode_wide_blocks(
-        block_payloads(data, info), info.block_size, info.total_len,
-        info.wide_priors, info.total_reads, info.dictionary or None, device=device,
-    )
+        return _verified(out, info)
+    out = decode_v1_blocks(block_payloads(data, info), info.num_cmds, info.block_size,
+                           info.total_len, device=dev)
     return _verified(out, info)

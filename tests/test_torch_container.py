@@ -1,7 +1,8 @@
 """Port container decode (nlzm_tpu_torch.parallel.blocks.decode_container)
-on the CPU: round trips at the shipping config and at 4 KiB blocks,
-the empty container, corrupt containers, the v1 refusal, device checks
-of the kernel wrappers, and a jax-free subprocess."""
+on the CPU: wide round trips at the shipping config and at 4 KiB blocks,
+v1 round trips, the empty containers, corrupt containers, the default
+device, device checks of the kernel wrappers, and a jax-free
+subprocess."""
 
 import subprocess
 import sys
@@ -11,15 +12,10 @@ import pytest
 import torch
 
 from nlzm_tpu.format.wide import HDR_BYTES, N_PLANES, PLANES, chunk_schedule, padded_steps
-from nlzm_tpu.parallel.blocks import (
-    IntegrityError,
-    block_payloads,
-    encode_container,
-    parse_container,
-)
+from nlzm_tpu.parallel.blocks import block_payloads, encode_container, parse_container
 from nlzm_tpu.utils.corpus import build_nonperiodic
-from nlzm_tpu_torch.ops import expand_ops, wide_decode
-from nlzm_tpu_torch.parallel.blocks import decode_container
+from nlzm_tpu_torch.ops import decode_v2, expand_ops, wide_decode
+from nlzm_tpu_torch.parallel.blocks import IntegrityError, decode_container
 
 torch.set_num_threads(1)
 
@@ -77,11 +73,40 @@ def test_corrupt_live_tok_pair_is_integrity_error(ship):
     assert decode_container(c, device="cpu") == data
 
 
-def test_v1_container_is_not_ported_yet():
-    c = encode_container(b"hello hello hello world" * 50, block_size=4096)
+@pytest.mark.parametrize("cfg", [
+    dict(block_size=4096, parser="greedy"),
+    dict(block_size=8192, parser="optimal"),
+], ids=["4k_greedy", "8k_optimal"])
+def test_v1_round_trip(corpus_text, cfg):
+    data = corpus_text(20000) + b"ragged tail"
+    c = encode_container(data, **cfg)
     assert not parse_container(c).wide
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
-        decode_container(c, device="cpu")
+    assert decode_container(c, device="cpu") == data
+
+
+def test_v1_decode_empty():
+    c = encode_container(b"")
+    assert not parse_container(c).wide
+    assert decode_container(c, device="cpu") == b""
+
+
+def test_v1_corrupt_payload_is_integrity_error(corpus_text):
+    """The mid-payload flip of tests/test_stream_container.py."""
+    data = corpus_text(8000)
+    c = bytearray(encode_container(data, block_size=4096, parser="greedy"))
+    info = parse_container(bytes(c))
+    c[info.payload_off + info.comp_sizes[0] // 2] ^= 0x40
+    with pytest.raises(IntegrityError):
+        decode_container(bytes(c), device="cpu")
+
+
+def test_default_device_is_cuda(ship):
+    """No CPU fallback: without a device argument the decode goes to the
+    card, and fails where there is none."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises((AssertionError, RuntimeError)):
+        decode_container(ship[1])
 
 
 def test_wrappers_refuse_other_devices():
@@ -96,22 +121,28 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         expand_ops.lz_expand_parallel(
             torch.empty(16, 2, **i32), torch.empty(16, 2, **i32), 4096)
+    with pytest.raises(ValueError):
+        decode_v2.fsm_decode_v2(torch.empty(2, 64, dtype=torch.uint8, device=m), 256)
     assert wide_decode.stage_windows_fused.launches == 0
     assert expand_ops.lz_expand_parallel.launches == 0
+    assert decode_v2.fsm_decode_v2.launches == 0
 
 
 def test_port_runs_without_jax():
-    """Importing and running the port loads no jax (the GPU machine has
-    none); a subprocess, since this test process has jax loaded."""
+    """Importing and running the port (wide and v1 decode) loads nothing
+    of jax, nlzm_tpu or bench.py (the GPU machine has no jax); a
+    subprocess, since this test process has them loaded."""
     code = (
         "import sys, torch\n"
         "torch.set_num_threads(1)\n"
         "import nlzm_tpu_torch\n"
         "data = bytes(range(256)) * 40 + b'wide profile ' * 300\n"
-        "c = nlzm_tpu_torch.encode_container(data, block_size=4096, parser='optimal',"
-        " profile='wide')\n"
-        "assert nlzm_tpu_torch.decode_container(c, device='cpu') == data\n"
-        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+        "for kw in (dict(profile='wide', parser='optimal'), dict(parser='greedy')):\n"
+        "    c = nlzm_tpu_torch.encode_container(data, block_size=4096, **kw)\n"
+        "    assert nlzm_tpu_torch.decode_container(c, device='cpu') == data\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'bench', 'nlzm_tpu')\n"
+        "             or m.startswith(('jax.', 'nlzm_tpu.')))\n"
+        "assert not bad, bad\n"
         "print('ok')\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

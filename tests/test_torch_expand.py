@@ -1,7 +1,8 @@
 """Port LZ expansion (nlzm_tpu_torch.ops.expand_ops) against the JAX
 lz_expand_parallel, exact, on command arrays from real containers:
 RLE deep chains, a shared-dictionary container, and a 64 KiB block (the
-JAX 2-operand, non-packed branch); with and without a round hint."""
+JAX 2-operand, non-packed branch); with and without a round hint, and
+with a hint too small to resolve every parent."""
 
 import numpy as np
 import pytest
@@ -63,6 +64,26 @@ def test_lz_expand_matches_jax(commands, case, hinted):
     np.testing.assert_array_equal(t_prod.numpy(), np.asarray(j_prod))
     # and the bytes are the input's
     assert t_out.numpy().tobytes()[: len(data)] == data
+
+
+@pytest.mark.parametrize("hint", [0, 1], ids=["hint0", "hint1"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_lz_expand_unresolved_parents_match_jax(commands, case, hint):
+    """A round hint below the chain depth (8 here) leaves parents
+    unresolved: they are filled from the latest literal (or dictionary
+    byte) at or before them, as the JAX fills do, on the packed-sort path
+    with and without a dictionary and on the 2-operand path (64 KiB)."""
+    op_len, op_val, N, dictionary, _, data = commands[case]
+    j_dict = None if dictionary is None else jnp.asarray(np.frombuffer(dictionary, np.uint8))
+    t_dict = None if dictionary is None else torch.from_numpy(
+        np.frombuffer(dictionary, np.uint8).copy())
+    j_out, j_prod = jax_expand(jnp.asarray(op_len), jnp.asarray(op_val), N, hint, j_dict)
+    t_out, t_prod = expand_ops.lz_expand_parallel(
+        torch.from_numpy(op_len), torch.from_numpy(op_val), N, hint, t_dict)
+    np.testing.assert_array_equal(t_out.numpy(), np.asarray(j_out))
+    np.testing.assert_array_equal(t_prod.numpy(), np.asarray(j_prod))
+    # the hint is too small: both are wrong against the input, alike
+    assert t_out.numpy().tobytes()[: len(data)] != data
 
 
 @pytest.fixture
