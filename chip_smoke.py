@@ -4,11 +4,11 @@
     python3 chip_smoke.py
 
 Drives the port's main paths - wide-profile and v1 NLZP container decode,
-in memory and from files - on the card and fails (nonzero exit, no
-result line) on anything wrong:
+in memory and from files, and the wide-profile device encode - on the
+card and fails (nonzero exit, no result line) on anything wrong:
 
 1. device: a CUDA device is required; prints the card's name and power limit;
-2. build: compiles the five kernels from nlzm_tpu_torch/csrc with nvcc,
+2. build: compiles the nine kernels from nlzm_tpu_torch/csrc with nvcc,
    one process per source, all at once;
 3. kernels: encodes the bench corpus (8 MB) at the wide shipping config
    with the native host encoder, stages it on the card, and holds each
@@ -37,16 +37,30 @@ result line) on anything wrong:
 12. stream: the shipping wide and the bench v1 containers as files,
     decode_container_stream(bucket_bytes=2 MiB) to a file and in test
     mode: output and CRC must equal the input's, with the four wide
-    kernels, or fsm_decode and lz_expand, launched.
+    kernels, or fsm_decode and lz_expand, launched;
+13. kernels_enc: the device encode's kernels at the 8 MB, 32 KiB-block
+    shapes (245 blocks), each against its plain version, exact, with
+    CUDA-event times: find_matches with 1 and 3 candidates (reach 32767),
+    greedy_cover and repify on its output, plane_encode on the five
+    planes (with priors) of the bench's native-parsed commands, and on a
+    synthetic 4-row plane;
+14. e2e_enc_greedy: encode_container(profile="wide", parser="greedy",
+    engine="device") of the 8 MB on the card; the device plane encode's
+    payloads and priors on the device-parsed commands must equal
+    native.wide_encode's, the container must hold them, and the card's
+    decode must return the input; encode MB/s and the ratio;
+15. e2e_enc_pipeline: encode_pipeline_device at 32 KiB blocks, timed as
+    bench.py:313-334 (parse, staging, run); its payloads on all 8 MB
+    must equal native.wide_encode's.
 
-Launch counts are set to 0 just before each main-path decode (4, 5, 8,
-9, 10 and both calls of each file in 12) and read just after; a path
-that did not launch each of its kernels fails. The kernels line reports
-the counts of 4, 8 and the to-file calls of 12. Each phase prints one
-JSON line. The last three lines are the kernels summary, the card line
-of nvidia-smi, and {"ok": true, "device": ...}. Imports nothing of JAX,
-of nlzm_tpu or of bench.py: the port, and its own copy of bench.py's
-corpus generator.
+Launch counts are set to 0 just before each main-path run (4, 5, 8, 9,
+10, both calls of each file in 12, 14 and 15) and read just after; a
+path that did not launch each of its kernels fails. The kernels line
+reports the counts of 4, 8, the to-file calls of 12, 14 and 15. Each
+phase prints one JSON line. The last three lines are the kernels summary,
+the card line of nvidia-smi, and {"ok": true, "device": ...}. Imports
+nothing of JAX, of nlzm_tpu or of bench.py: the port, and its own copy of
+bench.py's corpus generator.
 """
 
 import json
@@ -77,6 +91,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 INT32_OPS_PER_S = 132 * 64 * 2 * 1.98e9
 WIDE_KERNELS = ("stage_windows", "plane_scan", "assemble", "lz_expand")
 V1_KERNELS = ("fsm_decode", "lz_expand")
+ENC_KERNELS = ("find_matches", "greedy_cover", "repify", "plane_encode")
+ENC_GREEDY = dict(block_size=32768, profile="wide", parser="greedy")  # bench.py:299-340 blocks
+ENC_HIST_BITS = 15  # hist_bits_for_block(32768): reach 32767
 
 
 def build_corpus(n: int) -> bytes:
@@ -354,8 +371,10 @@ def check_kernels_v1(tally: Tally, buckets, info):
 
 def counters():
     from nlzm_tpu_torch.ops import decode_v2 as dv
+    from nlzm_tpu_torch.ops import encode_ops as eo
     from nlzm_tpu_torch.ops import expand_ops as xo
     from nlzm_tpu_torch.ops import wide_decode as wd
+    from nlzm_tpu_torch.ops import wide_encode_dev as we
 
     return {
         "stage_windows": wd.stage_windows_fused,
@@ -363,6 +382,10 @@ def counters():
         "assemble": wd.assemble_ops,
         "lz_expand": xo.lz_expand_parallel,
         "fsm_decode": dv.fsm_decode_v2,
+        "find_matches": eo.find_matches,
+        "greedy_cover": eo.greedy_cover,
+        "repify": eo.repify,
+        "plane_encode": we.plane_encode,
     }
 
 
@@ -515,6 +538,188 @@ def run_v1(tally: Tally, data: bytes, device, card: str):
     return container, launches
 
 
+def bench_commands(data: bytes):
+    """The bench's device-encode input (bench.py:299-340): native parse,
+    depth lift and rep classification at 32 KiB blocks, [T, B] int32."""
+    import numpy as np
+
+    from nlzm_tpu_torch import native
+
+    op_len, op_val = native.parse_blocks(data, ENC_GREEDY["block_size"], ENC_HIST_BITS)
+    op_len = np.ascontiguousarray(op_len, np.int32)
+    op_val = np.ascontiguousarray(op_val, np.int32)
+    native.lift_deep(op_len, op_val, ENC_GREEDY["block_size"])
+    return op_len, op_val, native.classify_reps(op_len, op_val)
+
+
+def plane_work(args):
+    """plane_encode's (bytes, ops) for one plane: symbols, counts and
+    priors in, seeds, pairs and mask out; per live symbol ~6 operations
+    forward (lookup, count) and ~30 backward (u32 division and remainder,
+    renorm test, state update); per chunk, block and table entry ~4 to
+    rebuild."""
+    from nlzm_tpu_torch.format.wide import PLANES, chunk_schedule
+
+    syms, rows, n_sym, idx, steps, prior = args
+    spec = PLANES[idx]
+    B = n_sym.shape[0]
+    K = steps * spec.reads * spec.lanes
+    ins = nbytes(*syms, *rows, n_sym, *(prior or ()))
+    outs = B * spec.lanes * 4 + B * K * 5
+    table = sum(spec.rows[r] * spec.alphabets[r] for r in range(spec.reads))
+    live = int(n_sym.long().sum()) * spec.reads
+    return ins + outs, live * 36 + len(chunk_schedule(steps)) * B * table * 4
+
+
+def check_kernels_enc(tally: Tally, data: bytes, device):
+    """The four encode kernels against their plain versions at the 8 MB,
+    32 KiB-block shapes: find_matches with 1 and 3 candidates, greedy_cover
+    and repify on its output, plane_encode on the five planes (with
+    priors) of the bench's commands, and on a synthetic 4-row plane."""
+    import numpy as np
+    import torch
+
+    from nlzm_tpu_torch.format import wide
+    from nlzm_tpu_torch.ops import encode_ops as eo
+    from nlzm_tpu_torch.ops import wide_encode_dev as we
+
+    N = ENC_GREEDY["block_size"]
+    arr, nv = eo._blocks_arrays(data, N)
+    dt, nvt = torch.as_tensor(arr, device=device), torch.as_tensor(nv, device=device)
+    B = dt.shape[0]
+    reach = (1 << ENC_HIST_BITS) - 1
+    log_n = (N - 1).bit_length()
+
+    def fm_work(delta, mlen):
+        # hash and key ~12 operations a position, log2 N compares to group
+        # it, 2 a byte compared (each candidate's length + 1)
+        cands = int(torch.count_nonzero(delta))
+        return (nbytes(dt, nvt, delta, mlen),
+                B * N * (12 + log_n) + 2 * (int(mlen.long().sum()) + cands))
+
+    delta, mlen = eo.find_matches(dt, nvt, reach)  # for the work count
+    delta, mlen = tally.hold("find_matches", lambda: eo.find_matches(dt, nvt, reach),
+                             lambda: eo.find_matches_ref(dt, nvt, reach), reps_plain=3,
+                             work=fm_work(delta, mlen))
+    d3, m3 = eo.find_matches(dt, nvt, reach, 3)
+    tally.hold("find_matches_c3", lambda: eo.find_matches(dt, nvt, reach, 3),
+               lambda: eo.find_matches_ref(dt, nvt, reach, 3), reps_plain=3,
+               work=fm_work(d3, m3))
+    del d3, m3
+    T = (N + 255) // 256 * 256
+    gc = (dt, delta, mlen, nvt, T)
+    op_len, op_val = eo.greedy_cover(*gc)  # for the work count
+    n_cmd = int(torch.count_nonzero(op_len >= 0))
+    op_len, op_val = tally.hold(
+        "greedy_cover", lambda: eo.greedy_cover(*gc), lambda: eo.greedy_cover_ref(*gc),
+        reps_plain=1, work=(nbytes(dt, delta, mlen, nvt, op_len, op_val), 10 * n_cmd + 2 * T * B))
+    tally.hold("repify", lambda: eo.repify(op_len, op_val), lambda: eo.repify_ref(op_len, op_val),
+               reps_plain=1, work=(3 * nbytes(op_len), 12 * T * B))
+
+    batched = wide.batch_plane_arrays(*bench_commands(data))[1]
+    priors = wide.build_priors_from_batched(batched)
+    steps = {}
+    for i, spec in enumerate(wide.PLANES):
+        args = we.stage_plane(batched, priors, i, device)
+        steps[spec.name] = args[4]
+        tally.hold("plane_encode", lambda: we.plane_encode(*args),
+                   lambda: we.plane_encode_ref(*args), work=plane_work(args))
+
+    # the multi-row machinery: the synthetic 4-row, 16-symbol plane of
+    # tests/test_wide.py in place of dst, with a prior; untimed
+    spec4 = wide.PlaneSpec("dst", 8, 1, (16,), (4,))
+    rng = np.random.default_rng(11)
+    counts = np.array([300, 41], np.int32)
+    st4 = wide.padded_steps(int(counts.max()), spec4.lanes)
+    syms = np.zeros((2, st4 * spec4.lanes), np.int32)
+    rows = np.zeros_like(syms)
+    for b, n in enumerate(counts):
+        syms[b, :n] = rng.integers(0, 16, n)
+        rows[b, :n] = rng.integers(0, 4, n)
+    put = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=device)
+    args4 = ((put(syms),), (put(rows),), put(counts), 4, st4,
+             (put(rng.integers(0, 200, (4, 16))),))
+    planes = wide.PLANES
+    wide.PLANES = planes[:4] + (spec4,)
+    try:
+        tally.hold("plane_encode", lambda: we.plane_encode(*args4),
+                   lambda: we.plane_encode_ref(*args4), timed=False)
+    finally:
+        wide.PLANES = planes
+    return {"blocks": B, "commands": n_cmd, "plane_steps": steps}
+
+
+def run_encode(tally: Tally, data: bytes, device, card: str):
+    """Phases kernels_enc, e2e_enc_greedy and e2e_enc_pipeline; returns
+    {path: main-path launches}."""
+    from nlzm_tpu_torch import native
+    from nlzm_tpu_torch.ops.encode_ops import parse_blocks_device
+    from nlzm_tpu_torch.ops.wide_encode_dev import (
+        encode_pipeline_device, encode_wide_blocks_device)
+    from nlzm_tpu_torch.parallel.blocks import (
+        block_payloads, decode_container, encode_container, parse_container)
+
+    shape = check_kernels_enc(tally, data, device)
+    emit({"phase": "kernels_enc", "ok": True, **shape,
+          "kernels": tally.summary(ENC_KERNELS + ("find_matches_c3",)),
+          "timing": f"CUDA events, mean of {KERNEL_REPS} back-to-back calls (plane_encode: "
+                    f"summed over the five planes); plain: 3 calls for find_matches, 1 for "
+                    f"greedy_cover and repify, {KERNEL_REPS} for plane_encode", "card": card})
+
+    by_path = {}
+    enc = lambda: encode_container(data, device=device, engine="device", **ENC_GREEDY)
+    container, by_path["e2e_enc_greedy"] = launched("e2e_enc_greedy", ENC_KERNELS, enc)
+    # the device plane encode against the native one on the device-parsed ops
+    op_len, op_val, op_rep, _ = parse_blocks_device(
+        data, ENC_GREEDY["block_size"], ENC_HIST_BITS, device=device)
+    pd, bd = encode_wide_blocks_device(op_len, op_val, op_rep, device=device)
+    if (pd, bd) != native.wide_encode(op_len, op_val, op_rep):
+        raise AssertionError("e2e_enc_greedy: device payloads differ from native.wide_encode")
+    info = parse_container(container)
+    if block_payloads(container, info) != pd or info.wide_priors != bd:
+        raise AssertionError("e2e_enc_greedy: the container does not hold these payloads")
+    if decode_container(container, device=device) != data:
+        raise AssertionError("e2e_enc_greedy: the card's decode differs from the input")
+    e2e = best_ms(enc, REPS)
+    emit({"phase": "e2e_enc_greedy", "ok": True, "bytes": len(data),
+          "container_bytes": len(container), "ratio": len(container) / len(data),
+          "blocks": len(info.comp_sizes), "launches": by_path["e2e_enc_greedy"],
+          "e2e_ms": e2e, "e2e_MBps": len(data) / e2e / 1e3,
+          "timing": f"CUDA events around encode_container, best of {REPS}", "card": card})
+
+    def pipeline():
+        r = encode_pipeline_device(data, ENC_GREEDY["block_size"], device=device)
+        r[0]()  # the first run, as the bench's warm-up
+        return r
+
+    (run, parse_s, stage, first_s), by_path["e2e_enc_pipeline"] = launched(
+        "e2e_enc_pipeline", ("plane_encode",), pipeline)
+    ops = bench_commands(data)
+    if encode_wide_blocks_device(*ops, device=device) != native.wide_encode(*ops):
+        raise AssertionError("e2e_enc_pipeline: device payloads differ from native.wide_encode")
+    run_s = host_best(run, REPS)
+    stage_s = host_best(stage, 3)  # steady state
+    e2e_s = parse_s + stage_s + run_s
+    emit({"phase": "e2e_enc_pipeline", "ok": True, "bytes": len(data),
+          "launches": by_path["e2e_enc_pipeline"], "parse_ms": parse_s * 1e3,
+          "staging_ms": stage_s * 1e3, "staging_first_ms": first_s * 1e3,
+          "run_ms": run_s * 1e3, "e2e_MBps": len(data) / e2e_s / 1e6,
+          "stage_only_MBps": len(data) / run_s / 1e6, "payloads_checked_bytes": len(data),
+          "timing": f"host clock as bench.py:313-334: parse once, staging best of 3, run "
+                    f"best of {REPS}", "card": card})
+    return by_path
+
+
+def host_best(fn, reps: int) -> float:
+    """Best of `reps` host-clock seconds of fn() (which synchronises)."""
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
 def run_stream(files, device, card: str) -> dict:
     """Phase 12: each (label, data, container, kernels it must launch)
     through the file decoder, to a file and in test mode, each call
@@ -584,6 +789,7 @@ def main() -> int:
     v1_c, v1_launches = run_v1(tally, data, "cuda", card)
     stream_launches = run_stream([("wide_ship", data, wide_c, WIDE_KERNELS),
                                   ("v1_bench", data, v1_c, V1_KERNELS)], "cuda", card)
+    enc_launches = run_encode(tally, data, "cuda", card)
 
     src = "nlzm_tpu_torch/csrc/"
     replaces = {
@@ -592,15 +798,22 @@ def main() -> int:
         "assemble": "nlzm_tpu/ops/wide_decode.py:597",
         "lz_expand": "nlzm_tpu/ops/expand_ops.py:227",
         "fsm_decode": "nlzm_tpu/ops/decode_v2.py:435",
+        "find_matches": "nlzm_tpu/ops/encode_ops.py:87",
+        "greedy_cover": "nlzm_tpu/ops/encode_ops.py:149",
+        "repify": "nlzm_tpu/ops/encode_ops.py:367",
+        "plane_encode": "nlzm_tpu/ops/wide_encode_dev.py:33",
     }
     shapes = dict.fromkeys(replaces, "e2e_ship buckets")
     shapes["fsm_decode"] = "e2e_v1_bench buckets"
+    shapes.update(dict.fromkeys(ENC_KERNELS[:3], "8 MB at 32 KiB blocks, 245 blocks"))
+    shapes["plane_encode"] = "the bench's 8 MB commands, five planes with priors"
+    paths = {"e2e_ship": wide_launches, "e2e_v1_bench": v1_launches,
+             **{f"stream_{f}": c for f, c in stream_launches.items()}, **enc_launches}
     rows = []
     for n in replaces:
         r = tally.k[n]
         b_ms, b_by = bound(r["bytes"], r["ops"])
-        by_path = {"e2e_ship": wide_launches[n], "e2e_v1_bench": v1_launches[n],
-                   **{f"stream_{f}": c[n] for f, c in stream_launches.items()}}
+        by_path = {p: c[n] for p, c in paths.items()}
         rows.append({
             "name": n, "route": "cuda", "source": f"{src}{n}.cu", "replaces": replaces[n],
             "launches": sum(by_path.values()), "launches_by_path": by_path,

@@ -1,28 +1,36 @@
-"""nlzm_tpu_torch: the NLZP container decoder in PyTorch, with CUDA kernels.
+"""nlzm_tpu_torch: the NLZP container codec in PyTorch, with CUDA kernels.
 
-A port of the device decode paths of nlzm_tpu (JAX) to PyTorch on an
-NVIDIA Hopper GPU: the wide-profile and the v1 block decode
-(parallel/blocks.py::decode_container) and the bounded-memory file decode
-(parallel/stream.py::decode_container_stream). Each jitted device function
-of nlzm_tpu on those paths is a CUDA kernel written by hand
+A port of the device paths of nlzm_tpu (JAX) to PyTorch on an NVIDIA
+Hopper GPU: the wide-profile and the v1 block decode
+(parallel/blocks.py::decode_container), the bounded-memory file decode
+(parallel/stream.py::decode_container_stream), and the wide-profile
+device encode (encode_container(profile="wide", parser="greedy",
+engine="device"): the greedy device parse of ops/encode_ops.py, then the
+plane encode of ops/wide_encode_dev.py). Each jitted device function of
+nlzm_tpu on those paths is a CUDA kernel written by hand
 (nlzm_tpu_torch/csrc) beside a plain PyTorch version.
 
 The port keeps its own copies of the host modules it needs (constants,
-format/wide.py decode side, container parsing, the native binding,
-utils/crc32.py), pinned to the originals by tests/test_torch_host.py; it
-imports nothing of nlzm_tpu. Encoding is the native host engine's
-(native/, built at first use).
+format/wide.py, container parsing, the native binding, utils/crc32.py),
+pinned to the originals by tests/test_torch_host.py; it imports nothing
+of nlzm_tpu. Every other encode is the native host engine's (native/,
+built at first use).
 
 Every kernel wrapper dispatches on the device of the tensors it is given:
 CPU tensors run the plain version, CUDA tensors launch the kernel (built
-with nvcc at first use into .build/torch_kernels/). Entry points decode on
+with nvcc at first use into .build/torch_kernels/). Entry points run on
 "cuda" unless the caller names another device. Importing this package
 needs neither CUDA nor JAX.
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
+from .ops.encode_ops import parse_blocks_device
+from .ops.wide_encode_dev import encode_wide_blocks_device
 from .parallel.blocks import decode_container, encode_container
 from .parallel.stream import decode_container_stream
 
-__all__ = ["decode_container", "decode_container_stream", "encode_container", "__version__"]
+__all__ = [
+    "decode_container", "decode_container_stream", "encode_container",
+    "encode_wide_blocks_device", "parse_blocks_device", "__version__",
+]

@@ -21,7 +21,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / ".build" / "torch_kernels"
-KERNELS = ("stage_windows", "plane_scan", "assemble", "lz_expand", "fsm_decode")
+KERNELS = (
+    "stage_windows", "plane_scan", "assemble", "lz_expand", "fsm_decode",
+    "find_matches", "greedy_cover", "repify", "plane_encode",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -9,6 +9,9 @@ CDF_ADAPT_BITS = 7
 CDF_SCALE_BITS = 14
 CDF_SCALE_TOTAL = 1 << CDF_SCALE_BITS
 
+# ---- match finder: 4-byte multiplicative hash (device parse) ----
+HASH4_MULT = 987660757
+
 
 def frame_bits_for(hist_bits: int) -> int:
     """Frame size (bits) derived from window bits (NLZM.cpp:1722)."""

@@ -1,4 +1,5 @@
-// Shared helpers of the port's kernels: clamped indexing and block scans.
+// Shared helpers of the port's kernels: clamped indexing, warp and block
+// scans, and the wide profile's fence rebuild.
 //
 // Every index a kernel derives from stream data is clamped before it is
 // used: the JAX decoder's gathers clamp silently (XLA semantics), and a
@@ -63,6 +64,30 @@ __device__ __forceinline__ void block_exclusive_scan(int (&v)[NV], int (&total)[
     v[j] = base + incl[j] - v[j];
   }
   __syncthreads();  // scratch is free for the next call
+}
+
+constexpr int CDF_TOTAL = 1 << 14;  // the wide profile's 14-bit CDF scale
+
+// Wide-profile fences [alph + 1] from counts [alph], as format/wide.py
+// build_cdf: freq = 1 + carry * (2^14 - alph) / (total + 1), fences the
+// exclusive prefix sums with the last pinned at 2^14. Called by one whole
+// warp.
+__device__ __forceinline__ void build_fences(const int* carry, int* fen, int alph) {
+  const int lane = threadIdx.x & 31;
+  int tot = 0;
+  for (int k = lane; k < alph; k += 32) tot += carry[k];
+  tot = warp_sum(tot);
+  int run = 0;
+  for (int k0 = 0; k0 < alph; k0 += 32) {
+    const int k = k0 + lane;
+    int fr = 0;
+    if (k < alph) fr = 1 + (int)(((long long)carry[k] * (CDF_TOTAL - alph)) / (tot + 1));
+    const int inc = warp_inclusive_sum(fr);
+    if (k < alph) fen[k] = run + inc - fr;
+    run += __shfl_sync(0xffffffffu, inc, 31);
+  }
+  if (lane == 0) fen[alph] = CDF_TOTAL;
+  __syncwarp();
 }
 
 // Launch epilogue shared by the C entry points: the launch's own error

@@ -35,7 +35,6 @@ namespace {
 constexpr int NP = 5;
 constexpr int LTOT = 208;
 constexpr int NTHREADS = 224;
-constexpr int S14 = 1 << 14;
 constexpr int NSYM_TOT = 4 + 8 + 64 + 256 + 256;
 constexpr int NFEN_TOT = NSYM_TOT + NP;
 
@@ -52,25 +51,6 @@ struct Planes {
   int wh[NP];
   int* out[NP];  // wire order, [B, steps * L_p] symbols
 };
-
-// Fences [alph + 1] from carries [alph]; called by one whole warp.
-__device__ void build_fences(const int* carry, int* fen, int alph) {
-  const int lane = threadIdx.x & 31;
-  int tot = 0;
-  for (int k = lane; k < alph; k += 32) tot += carry[k];
-  tot = warp_sum(tot);
-  int run = 0;
-  for (int k0 = 0; k0 < alph; k0 += 32) {
-    const int k = k0 + lane;
-    int fr = 0;
-    if (k < alph) fr = 1 + (int)(((long long)carry[k] * (S14 - alph)) / (tot + 1));
-    const int inc = warp_inclusive_sum(fr);
-    if (k < alph) fen[k] = run + inc - fr;
-    run += __shfl_sync(0xffffffffu, inc, 31);
-  }
-  if (lane == 0) fen[alph] = S14;
-  __syncwarp();
-}
 
 __global__ void __launch_bounds__(NTHREADS)
     plane_scan_kernel(const unsigned* __restrict__ seeds, const int* __restrict__ n_syms,
@@ -94,7 +74,7 @@ __global__ void __launch_bounds__(NTHREADS)
     if (priors) {
       build_fences(carry + c_sym_off[warp], f, a);
     } else {
-      for (int k = lane; k <= a; k += 32) f[k] = k < a ? k * (S14 / a) : S14;
+      for (int k = lane; k <= a; k += 32) f[k] = k < a ? k * (CDF_TOTAL / a) : CDF_TOTAL;
     }
   }
   __syncthreads();

@@ -1,7 +1,9 @@
 """ctypes binding of the repo's native host engine (native/libnlzmx.so).
 
 A copy of the part of nlzm_tpu/native.py the port calls: block encode and
-decode, threaded v1 block encode, and the native wide encode pipeline.
+decode, threaded v1 block encode, the native wide encode pipeline, and
+the pieces the device wide encode runs around its kernels (native parse,
+depth lift, rep classification, host plane encode).
 native/ is the repo's C++ engine (built by `make -C native` from
 native/src/, at first use); this module loads the same library.
 """
@@ -59,6 +61,26 @@ def load() -> ctypes.CDLL:
     lib.nlzmx_encode_blocks.argtypes = [
         c_u8p, c_i64, c_i64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         c_u8p, c_i64, c_i64p, c_i64p, c_i64p,
+    ]
+
+    lib.nlzmx_parse_blocks.restype = ctypes.c_int
+    lib.nlzmx_parse_blocks.argtypes = [
+        c_u8p, c_i64, c_i64, ctypes.c_int, ctypes.c_int, c_i32p, c_i32p, c_i64,
+    ]
+
+    lib.nlzmx_classify_reps.restype = None
+    lib.nlzmx_classify_reps.argtypes = [c_i32p, c_i32p, c_i64, c_i64, c_i32p]
+
+    lib.nlzmx_lift_deep.restype = None
+    lib.nlzmx_lift_deep.argtypes = [
+        c_i32p, c_i32p, c_i64, c_i64, ctypes.c_int, ctypes.c_int, ctypes.c_int, c_i32p,
+        c_i64,
+    ]
+
+    lib.nlzmx_wide_encode.restype = ctypes.c_int
+    lib.nlzmx_wide_encode.argtypes = [
+        c_i32p, c_i32p, c_i32p, c_i64, c_i64, ctypes.c_int, ctypes.c_int,
+        c_u8p, c_i64, c_i64p, c_u8p,
     ]
     return lib
 
@@ -180,3 +202,81 @@ def wide_encode_pipeline(data: bytes, block_size: int, hist_bits: int, depth_cap
         payloads.append(out[off : off + int(sizes[b])].tobytes())
         off += int(sizes[b])
     return payloads, priors.tobytes(), depths, [int(c) for c in ncmds]
+
+
+def _i32p(arr: np.ndarray):
+    return arr.ctypes.data_as(ctypes.POINTER(ctypes.c_int))
+
+
+def lift_deep(op_len: np.ndarray, op_val: np.ndarray, block_size: int) -> np.ndarray:
+    """Bound literal-ancestor depth in [T, B] command arrays at cap 15 (in
+    place: op_val is rewritten through ctypes, so it must own its memory).
+    Returns the per-block max chain depth."""
+    assert op_len.dtype == np.int32 and op_val.dtype == np.int32
+    assert op_len.flags.c_contiguous and op_val.flags.c_contiguous
+    T, B = op_len.shape
+    depths = np.zeros(B, np.int32)
+    load().nlzmx_lift_deep(_i32p(op_len), _i32p(op_val), T, B, block_size, 15,
+                           min(16, os.cpu_count() or 1), _i32p(depths), 0)
+    return depths
+
+
+def wide_encode(op_len: np.ndarray, op_val: np.ndarray, op_rep: np.ndarray,
+                with_priors: bool = True):
+    """Threaded wide-profile plane encode of [T, B] command arrays.
+    Returns (payloads list, priors_blob bytes)."""
+    assert op_len.dtype == np.int32 and op_val.dtype == np.int32
+    T, B = op_len.shape
+    if B == 0:
+        return [], b""
+    threads = min(16, os.cpu_count() or 1)
+    ol = np.ascontiguousarray(op_len.T)
+    ov = np.ascontiguousarray(op_val.T)
+    orp = np.ascontiguousarray(np.asarray(op_rep, np.int32).T)
+    # worst-case payload: headers + chunk tables + incompressible planes
+    out_cap = B * (17 * T + 65536)
+    out = np.empty(out_cap, np.uint8)
+    sizes = np.zeros(B, np.int64)
+    priors = np.zeros(priors_blob_size(), np.uint8)
+    rc = load().nlzmx_wide_encode(
+        _i32p(ol), _i32p(ov), _i32p(orp), T, B, 1 if with_priors else 0, threads,
+        _u8p(out), out_cap, sizes.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)),
+        _u8p(priors),
+    )
+    if rc != 0:
+        raise RuntimeError("native wide encode overflow")
+    payloads = []
+    off = 0
+    for b in range(B):
+        payloads.append(out[off : off + int(sizes[b])].tobytes())
+        off += int(sizes[b])
+    return payloads, (priors.tobytes() if with_priors else b"")
+
+
+def parse_blocks(data: bytes, block_size: int, hist_bits: int):
+    """Native optimal parse -> ([T, B] op_len, op_val) command arrays."""
+    lib = load()
+    n = len(data)
+    nblocks = (n + block_size - 1) // block_size
+    if nblocks == 0:
+        return np.zeros((0, 0), np.int32), np.zeros((0, 0), np.int32)
+    threads = min(os.cpu_count() or 1, nblocks)
+    t_cap = block_size + 8
+    src = np.frombuffer(data, dtype=np.uint8)
+    ol = np.empty((nblocks, t_cap), np.int32)
+    ov = np.zeros((nblocks, t_cap), np.int32)
+    rc = lib.nlzmx_parse_blocks(_u8p(src), n, block_size, hist_bits, threads,
+                                _i32p(ol), _i32p(ov), t_cap)
+    if rc != 0:
+        raise RuntimeError("native parse failed")
+    return np.ascontiguousarray(ol.T), np.ascontiguousarray(ov.T)
+
+
+def classify_reps(op_len: np.ndarray, op_val: np.ndarray) -> np.ndarray:
+    """Wide-profile rep classification of [T, B] command arrays."""
+    assert op_len.dtype == np.int32 and op_len.flags.c_contiguous
+    assert op_val.dtype == np.int32 and op_val.flags.c_contiguous
+    T, B = op_len.shape
+    out = np.full((T, B), -1, np.int32)  # rows past a block's end stay -1
+    load().nlzmx_classify_reps(_i32p(op_len), _i32p(op_val), T, B, _i32p(out))
+    return out

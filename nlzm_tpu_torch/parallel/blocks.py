@@ -1,12 +1,14 @@
-"""NLZP block container: host encode, parsing, and decode on a PyTorch device.
+"""NLZP block container: encode, parsing, and decode on a PyTorch device.
 
 Counterpart of nlzm_tpu/parallel/blocks.py. The container code (header
 constants, ContainerInfo, parse_container, CRC verification, payload
 slicing, dictionary sampling and (de)compression) is a copy of the
-original; tests/test_torch_host.py pins its output to it. The encoder is
-the native host one only: the wide profile through
-native.wide_encode_pipeline, v1 through native.encode_blocks. Decode runs
-both profiles on the device: wide through ops/wide_decode.py, v1 through
+original; tests/test_torch_host.py pins its output to it. Encode runs on
+the native host engine (the wide profile through
+native.wide_encode_pipeline, v1 through native.encode_blocks) or, for the
+wide profile with the greedy parse, on the device (engine="device":
+ops/encode_ops.py, then ops/wide_encode_dev.py). Decode runs both
+profiles on the device: wide through ops/wide_decode.py, v1 through
 ops/decode_v2.py (fsm_decode_v2) and ops/expand_ops.py.
 
 Container layout (all integers big-endian):
@@ -37,8 +39,10 @@ from .. import native
 from ..constants import frame_bits_for
 from ..format.wide import priors_blob_size
 from ..ops.decode_v2 import fsm_decode_v2
+from ..ops.encode_ops import parse_blocks_device
 from ..ops.expand_ops import lz_expand_parallel, scatter_blocks
 from ..ops.wide_decode import decode_wide_blocks, dict_tensor
+from ..ops.wide_encode_dev import encode_wide_blocks_device
 from ..utils.crc32 import crc32
 
 MAGIC = b"NLZP"
@@ -110,23 +114,33 @@ def encode_container(
     profile: str = "v1",
     depth_cap: int = 8,
     dict_size: int = 0,
+    device="cuda",
 ) -> bytes:
-    """Block encode with the native host engine; the container bytes are
-    those nlzm_tpu's encode_container writes with its native engine.
+    """Block encode; the container bytes are those nlzm_tpu's
+    encode_container writes with the same engine (its "tpu" engine is
+    this one's "device").
 
-    profile="wide" needs parser="optimal" (the native wide pipeline);
-    depth_cap bounds every byte's literal-ancestor chain depth, dict_size
-    > 0 samples a shared dictionary. engine: "auto" or "native".
-    Raises NotImplementedError for what only a device encode does here
-    (engine="tpu", or a wide greedy parse: ROADMAP.md queue A items 8 and
-    10), NativeUnavailable when the native library cannot be built.
+    engine "auto" or "native": the native host engine; profile="wide"
+    then needs parser="optimal" (the native wide pipeline), depth_cap
+    bounds every byte's literal-ancestor chain depth and dict_size > 0
+    samples a shared dictionary. engine="device": the wide profile encoded
+    on `device` - the greedy device parse (ops/encode_ops.py) and the
+    device plane encode (ops/wide_encode_dev.py); no dictionary.
+    Raises NotImplementedError for the device encodes not ported (the
+    optimal device parse, the v1 device encode: ROADMAP.md queue A items
+    10b and 10a), NativeUnavailable when the native library cannot be
+    built.
     """
-    if engine not in ("auto", "native") or (profile == "wide" and parser != "optimal"):
+    if engine not in ("auto", "native", "device"):
+        raise ValueError(f"engine={engine!r}: 'auto', 'native' or 'device'")
+    if engine == "device" and profile != "wide":
         raise NotImplementedError(
-            f"engine={engine!r}, profile={profile!r}, parser={parser!r}: the port encodes "
-            "with the native host engine only (wide: parser='optimal'); the device "
-            "encode and parse are ROADMAP.md queue A items 8 and 10"
-        )
+            f"engine='device', profile={profile!r}: the v1 device encode (emit_model, "
+            "rans_backward, bits_forward) is ROADMAP.md queue A item 10a")
+    if engine != "device" and profile == "wide" and parser != "optimal":
+        raise NotImplementedError(
+            f"engine={engine!r}, parser={parser!r}: the host engine encodes the wide profile "
+            "with parser='optimal' only; the greedy parse runs with engine='device'")
     dictionary = b""
     if dict_size and profile == "wide":
         dictionary = sample_dict(data, dict_size)
@@ -140,11 +154,25 @@ def encode_container(
         if block_size > WIDE_MAX_BLOCK:
             raise ValueError("wide profile caps blocks at 128 KiB")
         flags |= FLAG_WIDE
-        if num_blocks:
+        if dictionary and engine == "device":
+            raise ValueError(
+                "shared dictionaries need the native optimal-parse pipeline "
+                "(engine != 'device', parser='optimal')")
+        if num_blocks and engine == "device":
+            # device parse feeds the device plane encoder (byte-identical
+            # to the host's)
+            op_len, op_val, op_rep, depths = parse_blocks_device(
+                data, block_size, hist_bits, parser, device=device)
+            payloads, priors_blob = encode_wide_blocks_device(op_len, op_val, op_rep,
+                                                              device=device)
+            neg = op_len < 0
+            ncmds = np.where(neg.any(axis=0), neg.argmax(axis=0), op_len.shape[0]).tolist()
+        elif num_blocks:
             payloads, priors_blob, depths, ncmds = native.wide_encode_pipeline(
                 data, block_size, hist_bits, depth_cap=depth_cap,
                 dictionary=dictionary or None,
             )
+        if num_blocks:
             if priors_blob:
                 flags |= FLAG_PRIORS
             if dictionary:

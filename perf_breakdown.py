@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
-"""Where the time of one container decode goes, on one GPU.
+"""Where the time of one container decode, and of one device encode,
+goes on one GPU.
 
     python3 perf_breakdown.py
 
 Decodes the 8 MB bench corpus (chip_smoke.build_corpus) from container
 bytes in host memory, at the wide shipping config and at the bench's v1
-config, stage by stage through the functions decode_container runs:
+config, stage by stage through the functions decode_container runs; and
+encodes it with the wide greedy device encode (32 KiB blocks), stage by
+stage through the functions encode_container(engine="device") runs:
 host clock around each stage, with a torch.cuda.synchronize() at every
-boundary, min and median over REPS runs. Then one decode of each under
-torch.profiler: device time by kernel, and the device's busy share of the
-wall time. Prints one JSON
+boundary, min and median over REPS runs. Then one decode of each, and one
+encode_container(engine="device"), under torch.profiler: device time by
+kernel, and the device's busy share of the wall time. Prints one JSON
 line per measurement and the card line of nvidia-smi. Needs a CUDA
 device; imports the port and chip_smoke.py only.
 """
@@ -19,10 +22,15 @@ import re
 import statistics
 import time
 
+import numpy as np
 import torch
 
 import chip_smoke
+from nlzm_tpu_torch import native
+from nlzm_tpu_torch.format import wide
+from nlzm_tpu_torch.ops import encode_ops as eo
 from nlzm_tpu_torch.ops import wide_decode as wd
+from nlzm_tpu_torch.ops import wide_encode_dev as we
 from nlzm_tpu_torch.ops.expand_ops import scatter_blocks
 from nlzm_tpu_torch.parallel import blocks
 
@@ -79,22 +87,67 @@ def v1_stages(container: bytes, data: bytes, dev) -> dict:
     return c.ms
 
 
+def encode_stages(data: bytes, dev) -> dict:
+    """The wide greedy device encode, stage by stage: parse_blocks_device
+    (find_matches, greedy_cover, the copy back, lift_deep, repify), then
+    encode_wide_blocks_device (plane batching, priors, upload, the five
+    plane_encode launches, the host assembly)."""
+    N, hist_bits = chip_smoke.ENC_GREEDY["block_size"], chip_smoke.ENC_HIST_BITS
+    c = Clock()
+    arr, n_valid = eo._blocks_arrays(data, N)
+    dt, nv = torch.as_tensor(arr, device=dev), torch.as_tensor(n_valid, device=dev)
+    c.lap("_blocks_arrays + upload")
+    delta, mlen = eo.find_matches(dt, nv, (1 << hist_bits) - 1)
+    c.lap("find_matches")
+    op_len, op_val = eo.greedy_cover(dt, delta, mlen, nv, (N + 255) // 256 * 256)
+    c.lap("greedy_cover")
+    op_len = np.array(op_len.cpu().numpy(), np.int32, order="C")
+    op_val = np.array(op_val.cpu().numpy(), np.int32, order="C")
+    c.lap("copy back (two [T, B] int32)")
+    native.lift_deep(op_len, op_val, N)
+    c.lap("lift_deep (native, host)")
+    op_rep = eo.repify(torch.as_tensor(op_len, device=dev),
+                       torch.as_tensor(op_val, device=dev)).cpu().numpy()
+    c.lap("repify (upload, kernel, copy back)")
+    per_block, batched, counts = wide.batch_plane_arrays(op_len, op_val, op_rep)
+    c.lap("batch_plane_arrays (host)")
+    priors = wide.build_priors_from_batched(batched)
+    blob = wide.serialize_priors(priors)
+    c.lap("priors (host)")
+    args = [we.stage_plane(batched, priors, i, dev) for i in range(wide.N_PLANES)]
+    c.lap("stage_plane (upload, 5 planes)")
+    outs = [we.plane_encode(*a) for a in args]
+    c.lap("plane_encode (5 launches)")
+    planes = [we.plane_streams(spec, a[4], *o) for spec, a, o in zip(wide.PLANES, args, outs)]
+    c.lap("plane_streams (copy back, per-block streams)")
+    payloads = wide.assemble_payloads(per_block, counts, [p[0] for p in planes],
+                                      [p[1] for p in planes])
+    c.lap("assemble_payloads (host)")
+    if (payloads, blob) != native.wide_encode(op_len, op_val, op_rep):
+        raise AssertionError("device plane encode differs from native.wide_encode")
+    c.t = time.perf_counter()  # the check is not a stage
+    blocks.encode_container(data, device=dev, engine="device", **chip_smoke.ENC_GREEDY)
+    c.lap("encode_container(engine='device'), whole, for comparison")
+    return c.ms
+
+
 def check(plain: bytes, data: bytes, info) -> None:
     """The decode's CRC verification (blocks._verified), then the bytes."""
     if blocks._verified(plain, info) != data:
         raise AssertionError("decoded bytes differ from the input")
 
 
-def profile(container: bytes, dev) -> dict:
-    """One decode_container under torch.profiler: device ms by kernel."""
+def profile(fn) -> dict:
+    """One fn() (a decode or an encode) under torch.profiler: device ms by
+    kernel."""
     from torch.profiler import ProfilerActivity, profile as prof
 
     for _ in range(2):  # the first profile also starts the tracer: keep the second
-        blocks.decode_container(container, device=dev)
+        fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-            blocks.decode_container(container, device=dev)
+            fn()
             torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     by = {}
@@ -121,18 +174,24 @@ def main() -> int:
                                               **chip_smoke.SHIP), wide_stages),
         "v1_bench": (blocks.encode_container(data, **chip_smoke.V1_BENCH), v1_stages),
     }
-    for name, (container, fn) in cases.items():
-        fn(container, data, dev)  # warm: kernel builds, allocator
-        runs = [fn(container, data, dev) for _ in range(REPS)]
+    runs_of = {name: (lambda c=c, fn=fn: fn(c, data, dev),
+                      lambda c=c: blocks.decode_container(c, device=dev))
+               for name, (c, fn) in cases.items()}
+    runs_of["wide_greedy_encode"] = (
+        lambda: encode_stages(data, dev),
+        lambda: blocks.encode_container(data, device=dev, engine="device",
+                                        **chip_smoke.ENC_GREEDY))
+    for name, (stages_fn, whole) in runs_of.items():
+        stages_fn()  # warm: kernel builds, allocator
+        runs = [stages_fn() for _ in range(REPS)]
         stages = {k: {"min": min(r[k] for r in runs),
                       "median": statistics.median(r[k] for r in runs)} for k in runs[0]}
-        total = [sum(r.values()) for r in runs]
+        total = [sum(v for k, v in r.items() if "for comparison" not in k) for r in runs]
         print(json.dumps({"case": name, "bytes": len(data), "stages_ms": stages,
                           "total_ms": {"min": min(total), "median": statistics.median(total)},
                           "timing": f"host clock, synchronise at each boundary, {REPS} runs",
                           "card": card}), flush=True)
-        print(json.dumps({"case": name, "profile": profile(container, dev), "card": card}),
-              flush=True)
+        print(json.dumps({"case": name, "profile": profile(whole), "card": card}), flush=True)
     print(card, flush=True)
     return 0
 

@@ -1,7 +1,10 @@
 """The port's own copies of the host modules, pinned to the originals:
 container encode (byte-identical), container and payload parsing, the
-wide format tables and chunk schedule, the constants, CRC32, and
-chip_smoke.py's copy of the bench corpus generator."""
+wide format tables and chunk schedule, the constants, CRC32,
+chip_smoke.py's copy of the bench corpus generator, and the host side of
+the device wide encode (native parse, lift, rep classification and plane
+encode bindings; plane batching, priors, payload assembly, bit packing,
+slot and minimum-length helpers)."""
 
 import dataclasses
 
@@ -11,10 +14,12 @@ import pytest
 import bench
 import chip_smoke
 from nlzm_tpu import constants as jconst
+from nlzm_tpu import native as jnative
 from nlzm_tpu.format import wide as jwide
 from nlzm_tpu.parallel import blocks as jblocks
 from nlzm_tpu.utils.crc32 import crc32 as jcrc32
 from nlzm_tpu_torch import constants as tconst
+from nlzm_tpu_torch import native as tnative
 from nlzm_tpu_torch.format import wide as twide
 from nlzm_tpu_torch.parallel import blocks as tblocks
 from nlzm_tpu_torch.utils.crc32 import crc32 as tcrc32
@@ -119,3 +124,98 @@ def test_crc32():
 
 def test_build_corpus_copy():
     assert chip_smoke.build_corpus(1 << 20) == bench.build_corpus(1 << 20)
+
+
+# ---- the host side of the device wide encode
+
+
+@pytest.fixture(scope="module")
+def parsed(corpus_text):
+    """Native-parsed commands (JAX package binding) of 50 KB at 8 KiB
+    blocks, lifted and rep-classified, as [T, B] int32."""
+    op_len, op_val = jnative.parse_blocks(corpus_text(50_000), 8192, 13)
+    op_len = np.ascontiguousarray(op_len, np.int32)
+    op_val = np.ascontiguousarray(op_val, np.int32)
+    jnative.lift_deep(op_len, op_val, 8192)
+    return op_len, op_val, jnative.classify_reps(op_len, op_val)
+
+
+def test_hash_constant():
+    assert tconst.HASH4_MULT == jconst.HASH4_MULT
+
+
+def test_native_parse_lift_classify(corpus_text):
+    data = corpus_text(50_000)
+    tl, tv = tnative.parse_blocks(data, 8192, 13)
+    jl, jv = jnative.parse_blocks(data, 8192, 13)
+    np.testing.assert_array_equal(tl, jl)
+    np.testing.assert_array_equal(tv, jv)
+    tl, tv = np.ascontiguousarray(tl, np.int32), np.ascontiguousarray(tv, np.int32)
+    jl, jv = tl.copy(), tv.copy()
+    np.testing.assert_array_equal(tnative.lift_deep(tl, tv, 8192), jnative.lift_deep(jl, jv, 8192))
+    np.testing.assert_array_equal(tv, jv)
+    np.testing.assert_array_equal(tnative.classify_reps(tl, tv), jnative.classify_reps(jl, jv))
+    for a, b in zip(tnative.parse_blocks(b"", 8192, 13), jnative.parse_blocks(b"", 8192, 13)):
+        assert a.shape == b.shape == (0, 0)
+
+
+@pytest.mark.parametrize("with_priors", [False, True])
+def test_native_wide_encode(parsed, with_priors):
+    assert tnative.wide_encode(*parsed, with_priors) == jnative.wide_encode(*parsed, with_priors)
+
+
+def test_batch_plane_arrays_and_priors(parsed):
+    tp, tb, tc = twide.batch_plane_arrays(*parsed)
+    jp, jb, jc = jwide.batch_plane_arrays(*parsed)
+    assert tp == jp
+    assert all(np.array_equal(a, b) for a, b in zip(tc, jc, strict=True))
+    assert tb.keys() == jb.keys()
+    for k in jb:
+        (ts, tr, tn, tm), (js, jr, jn, jm) = tb[k], jb[k]
+        assert all(np.array_equal(a, b) for a, b in zip(ts, js, strict=True))
+        assert tr == jr
+        np.testing.assert_array_equal(tn, jn)
+        np.testing.assert_array_equal(tm, jm)
+    tpri, jpri = twide.build_priors_from_batched(tb), jwide.build_priors_from_batched(jb)
+    assert tpri.keys() == jpri.keys()
+    for k in jpri:
+        assert all(np.array_equal(a, b) for a, b in zip(tpri[k], jpri[k], strict=True))
+    assert twide.serialize_priors(tpri) == jwide.serialize_priors(jpri)
+    assert twide.PRIOR_ROW_BUDGET == jwide.PRIOR_ROW_BUDGET
+
+
+def test_assemble_payloads(parsed):
+    """The numpy encoder's payloads, rebuilt from its own plane streams by
+    the port's copy of assemble_payloads."""
+    per_block, batched, counts = jwide.batch_plane_arrays(*parsed)
+    priors = jwide.build_priors_from_batched(batched)
+    streams, offsets = [], []
+    for spec in jwide.PLANES:
+        syms, rows, n, _ = batched[spec.name]
+        s, o = jwide._rans_encode_plane(spec, syms, rows, n, len(per_block), priors[spec.name])
+        streams.append(s)
+        offsets.append(o)
+    want = jwide.assemble_payloads(per_block, counts, streams, offsets)
+    assert twide.assemble_payloads(per_block, counts, streams, offsets) == want
+    assert want == jwide.encode_wide_blocks(*parsed)[0]
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_slot_and_mmin_helpers(dtype):
+    rng = np.random.default_rng(3)
+    dv = np.concatenate([np.arange(0, 70000), rng.integers(0, 1 << 23, 5000)]).astype(dtype)
+    for a, b in zip(twide.dist_slot_of(dv), jwide.dist_slot_of(dv), strict=True):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    d = dv + dtype(1)
+    np.testing.assert_array_equal(twide.mmin_of(d), jwide.mmin_of(d))
+    assert twide.mmin_of(d).dtype == jwide.mmin_of(d).dtype
+
+
+def test_pack_bits():
+    rng = np.random.default_rng(4)
+    assert twide._pack_bits(np.zeros(3, np.int32), np.zeros(3, np.int32)) == b""
+    for n in (1, 7, 100, 3001):
+        widths = rng.integers(0, 17, n).astype(np.int32)
+        values = (rng.integers(0, 1 << 16, n) & ((1 << widths) - 1)).astype(np.int32)
+        assert twide._pack_bits(widths, values) == jwide._pack_bits(widths, values)
