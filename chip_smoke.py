@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 Drives the port's main paths - wide-profile and v1 NLZP container decode,
-in memory and from files, and the wide-profile device encode - on the
-card and fails (nonzero exit, no result line) on anything wrong:
+in memory and from files, and the wide-profile and v1 device encodes, in
+memory and (v1) to a file - on the card and fails (nonzero exit, no
+result line) on anything wrong:
 
 1. device: a CUDA device is required; prints the card's name and power limit;
-2. build: compiles the nine kernels from nlzm_tpu_torch/csrc with nvcc,
+2. build: compiles the twelve kernels from nlzm_tpu_torch/csrc with nvcc,
    one process per source, all at once;
 3. kernels: encodes the bench corpus (8 MB) at the wide shipping config
    with the native host encoder, stages it on the card, and holds each
@@ -51,12 +52,26 @@ card and fails (nonzero exit, no result line) on anything wrong:
     decode must return the input; encode MB/s and the ratio;
 15. e2e_enc_pipeline: encode_pipeline_device at 32 KiB blocks, timed as
     bench.py:313-334 (parse, staging, run); its payloads on all 8 MB
-    must equal native.wide_encode's.
+    must equal native.wide_encode's;
+16. kernels_v1enc: the v1 device encode's kernels at the 8 MiB, 8 KiB-block
+    shapes (1024 blocks, 8192 steps, reach 8191): emit_model on the
+    kernels' greedy commands, rans_backward on its spans and bits_forward
+    on its fields, each against its plain version, exact, with CUDA-event
+    times; rans_backward and bits_forward also at a 101-byte cap, where
+    writes are dropped; all three on fuzz_commands (the clamps);
+17. e2e_enc_v1: encode_container(profile="v1", parser="greedy",
+    engine="device") of the 8 MiB at 8 KiB blocks; every payload must
+    decode through the host decoder native.decode_block and the
+    container through the card's decode (fsm_decode); encode MB/s and
+    the ratio;
+18. stream_enc_v1: encode_container_stream of the 8 MiB file to a file on
+    the card, 2 MiB buckets; its bytes must equal 17's container.
 
 Launch counts are set to 0 just before each main-path run (4, 5, 8, 9,
-10, both calls of each file in 12, 14 and 15) and read just after; a
-path that did not launch each of its kernels fails. The kernels line
-reports the counts of 4, 8, the to-file calls of 12, 14 and 15. Each
+10, both calls of each file in 12, 14, 15, 17 and 18) and read just
+after; a path that did not launch each of its kernels fails. The kernels
+line reports the counts of 4, 8, the to-file calls of 12, 14, 15, 17 and
+18. Each
 phase prints one JSON line. The last three lines are the kernels summary,
 the card line of nvidia-smi, and {"ok": true, "device": ...}. Imports
 nothing of JAX, of nlzm_tpu or of bench.py: the port, and its own copy of
@@ -94,6 +109,11 @@ V1_KERNELS = ("fsm_decode", "lz_expand")
 ENC_KERNELS = ("find_matches", "greedy_cover", "repify", "plane_encode")
 ENC_GREEDY = dict(block_size=32768, profile="wide", parser="greedy")  # bench.py:299-340 blocks
 ENC_HIST_BITS = 15  # hist_bits_for_block(32768): reach 32767
+V1_ENC = dict(block_size=8192, parser="greedy")  # one NLZM frame per block
+V1_ENC_BYTES = 8 << 20  # 1024 blocks; the 8 MB of the other phases is its prefix
+V1_ENC_HIST_BITS = 13  # hist_bits_for_block(8192): reach 8191
+V1_ENC_SMALL_CAP = 101  # rANS and bit sections past it: the dropped writes
+V1ENC_KERNELS = ENC_KERNELS[:3] + ("emit_model", "rans_backward", "bits_forward")
 
 
 def build_corpus(n: int) -> bytes:
@@ -134,6 +154,27 @@ def build_corpus(n: int) -> bytes:
             chunk[rng.randrange(len(chunk))] = rng.randrange(32, 127)
         out += chunk
     return bytes(out[:n])
+
+
+def fuzz_commands(seed: int, T: int = 77, B: int = 64):
+    """[T, B] int32 (op_len, op_val, op_rep) drawn from a seed, beyond what
+    a parse gives: dead rows between live ones and below -1, literals
+    outside 0..255, lengths to 1000 (length extensions past 255),
+    distances 0 to 2^30 and negative, rep slots -1..7. For the kernels'
+    clamps; tests/test_torch_v1_encode.py holds the plain versions to JAX
+    on them."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    kind = rng.choice(5, size=(T, B), p=[0.15, 0.35, 0.25, 0.15, 0.10])
+    op_len = np.select([kind == 0, kind == 1, kind == 2, kind == 3],
+                       [rng.integers(-5, 0, (T, B)), 0, rng.integers(2, 11, (T, B)),
+                        rng.integers(11, 300, (T, B))], rng.integers(300, 1001, (T, B)))
+    dist = np.exp2(rng.uniform(0, 30, (T, B))).astype(np.int64)
+    op_val = np.where(kind == 1, rng.integers(-20, 300, (T, B)),
+                      np.where(rng.random((T, B)) < 0.05, rng.integers(-9, 1, (T, B)), dist))
+    op_rep = np.where(rng.random((T, B)) < 0.6, -1, rng.integers(0, 8, (T, B)))
+    return tuple(a.astype(np.int32) for a in (op_len, op_val, op_rep))
 
 
 def emit(obj) -> None:
@@ -386,6 +427,9 @@ def counters():
         "greedy_cover": eo.greedy_cover,
         "repify": eo.repify,
         "plane_encode": we.plane_encode,
+        "emit_model": eo.emit_model,
+        "rans_backward": eo.rans_backward,
+        "bits_forward": eo.bits_forward,
     }
 
 
@@ -710,6 +754,111 @@ def run_encode(tally: Tally, data: bytes, device, card: str):
     return by_path
 
 
+def check_kernels_v1enc(tally: Tally, data: bytes, device):
+    """The three v1 encode kernels against their plain versions at the
+    8 MiB, 8 KiB-block shapes, on the commands of the parse kernels; then
+    rans_backward and bits_forward at a small cap (untimed)."""
+    import torch
+
+    from nlzm_tpu_torch.ops import encode_ops as eo
+
+    N = V1_ENC["block_size"]
+    arr, nv = eo._blocks_arrays(data, N)
+    dt, nvt = torch.as_tensor(arr, device=device), torch.as_tensor(nv, device=device)
+    B, T = dt.shape[0], (N + 255) // 256 * 256
+    rans_cap = ((3 * N + 64 + 255) // 256) * 256  # encode_blocks_device's caps
+    bits_cap = ((N + 64 + 255) // 256) * 256
+    delta, mlen = eo.find_matches(dt, nvt, (1 << V1_ENC_HIST_BITS) - 1)
+    op_len, op_val = eo.greedy_cover(dt, delta, mlen, nvt, T)
+    cmds = (op_len, op_val, eo.repify(op_len, op_val))
+    del delta, mlen
+
+    spans, fields, nops = eo.emit_model(*cmds)  # for the work count
+    n_cmd = int(torch.count_nonzero(op_len >= 0))
+    n_span = int(torch.count_nonzero(spans))
+    # emit_model: ~64 operations a command (what it codes, its fields),
+    # 4 a fence of each coded read (load, target, adapt, store)
+    spans, fields, nops = tally.hold(
+        "emit_model", lambda: eo.emit_model(*cmds), lambda: eo.emit_model_ref(*cmds),
+        reps_plain=1, work=(nbytes(*cmds, spans, *fields, nops), 64 * n_cmd + 68 * n_span))
+    # rans_backward: ~30 a span (u32 division and remainder, renorm, the
+    # scans); bits_forward: ~20 a step (masks, scan, two ORs)
+    tally.hold("rans_backward", lambda: eo.rans_backward(spans, rans_cap),
+               lambda: eo.rans_backward_ref(spans, rans_cap), reps_plain=1,
+               work=(nbytes(spans) + B * (rans_cap + 4), 30 * n_span))
+    tally.hold("bits_forward", lambda: eo.bits_forward(fields, bits_cap),
+               lambda: eo.bits_forward_ref(fields, bits_cap), reps_plain=1,
+               work=(nbytes(*fields) + B * (bits_cap + 4), 20 * T * B))
+    cap = V1_ENC_SMALL_CAP
+    tally.hold("rans_backward", lambda: eo.rans_backward(spans, cap),
+               lambda: eo.rans_backward_ref(spans, cap), timed=False)
+    tally.hold("bits_forward", lambda: eo.bits_forward(fields, cap),
+               lambda: eo.bits_forward_ref(fields, cap), timed=False)
+    # the clamps, on commands no parse gives (untimed)
+    fz = tuple(torch.as_tensor(a, device=device) for a in fuzz_commands(5))
+    fspans, ffields, _ = tally.hold("emit_model", lambda: eo.emit_model(*fz),
+                                    lambda: eo.emit_model_ref(*fz), timed=False)
+    for fcap in (1024, 37):
+        tally.hold("rans_backward", lambda: eo.rans_backward(fspans, fcap),
+                   lambda: eo.rans_backward_ref(fspans, fcap), timed=False)
+        tally.hold("bits_forward", lambda: eo.bits_forward(ffields, fcap),
+                   lambda: eo.bits_forward_ref(ffields, fcap), timed=False)
+    return {"blocks": B, "steps": T, "commands": n_cmd, "spans": n_span, "rans_cap": rans_cap,
+            "bits_cap": bits_cap, "small_cap": cap}
+
+
+def run_v1_encode(tally: Tally, data: bytes, device, card: str):
+    """Phases kernels_v1enc, e2e_enc_v1 and stream_enc_v1; returns {path:
+    main-path launches}."""
+    from nlzm_tpu_torch import encode_container_stream, native
+    from nlzm_tpu_torch.parallel.blocks import (
+        block_payloads, decode_container, encode_container, parse_container)
+
+    shape = check_kernels_v1enc(tally, data, device)
+    emit({"phase": "kernels_v1enc", "ok": True, **shape,
+          "kernels": tally.summary(V1ENC_KERNELS[3:]),
+          "timing": f"CUDA events, mean of {KERNEL_REPS} back-to-back calls; plain: 1 call "
+                    f"after its comparison call", "card": card})
+
+    N = V1_ENC["block_size"]
+    by_path = {}
+    enc = lambda: encode_container(data, device=device, engine="device", **V1_ENC)
+    container, by_path["e2e_enc_v1"] = launched("e2e_enc_v1", V1ENC_KERNELS, enc)
+    info = parse_container(container)
+    for b, p in enumerate(block_payloads(container, info)):
+        if native.decode_block(p, info.hist_bits, N) != data[b * N : (b + 1) * N]:
+            raise AssertionError(f"e2e_enc_v1: native.decode_block differs on block {b}")
+    if decode_container(container, device=device) != data:
+        raise AssertionError("e2e_enc_v1: the card's decode differs from the input")
+    e2e = best_ms(enc, REPS)
+    emit({"phase": "e2e_enc_v1", "ok": True, "bytes": len(data),
+          "container_bytes": len(container), "ratio": len(container) / len(data),
+          "blocks": len(info.comp_sizes), "launches": by_path["e2e_enc_v1"],
+          "e2e_ms": e2e, "e2e_MBps": len(data) / e2e / 1e3,
+          "timing": f"CUDA events around encode_container, best of {REPS}", "card": card})
+
+    build = Path(__file__).resolve().parent / ".build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        src, dst = Path(tmp) / "in.bin", Path(tmp) / "out.nlzp"
+        src.write_bytes(data)
+        t0 = time.perf_counter()
+        r, by_path["stream_enc_v1"] = launched(
+            "stream_enc_v1", V1ENC_KERNELS, lambda: encode_container_stream(
+                str(src), str(dst), device=device, engine="device",
+                bucket_bytes=STREAM_BUCKET, **V1_ENC))
+        secs = time.perf_counter() - t0
+        if dst.read_bytes() != container:
+            raise AssertionError("stream_enc_v1: the file differs from e2e_enc_v1's container")
+    if r != {"in": len(data), "out": len(container), "crc32": zlib.crc32(data)}:
+        raise AssertionError(f"stream_enc_v1: result {r}")
+    emit({"phase": "stream_enc_v1", "ok": True, "bytes": len(data),
+          "bucket_bytes": STREAM_BUCKET, "buckets": -(-len(data) // STREAM_BUCKET),
+          "launches": by_path["stream_enc_v1"], "seconds": secs, "MBps": len(data) / secs / 1e6,
+          "timing": "host clock, one call, file to file", "card": card})
+    return by_path
+
+
 def host_best(fn, reps: int) -> float:
     """Best of `reps` host-clock seconds of fn() (which synchronises)."""
     best = float("inf")
@@ -784,12 +933,14 @@ def main() -> int:
                     for n, log in reports.items()}})
 
     tally = Tally()
-    data = build_corpus(SHIP_BYTES)
+    corpus = build_corpus(max(SHIP_BYTES, V1_ENC_BYTES))
+    data = corpus[:SHIP_BYTES]
     wide_c, wide_launches = run_wide(tally, data, "cuda", card)
     v1_c, v1_launches = run_v1(tally, data, "cuda", card)
     stream_launches = run_stream([("wide_ship", data, wide_c, WIDE_KERNELS),
                                   ("v1_bench", data, v1_c, V1_KERNELS)], "cuda", card)
     enc_launches = run_encode(tally, data, "cuda", card)
+    v1enc_launches = run_v1_encode(tally, corpus[:V1_ENC_BYTES], "cuda", card)
 
     src = "nlzm_tpu_torch/csrc/"
     replaces = {
@@ -802,13 +953,18 @@ def main() -> int:
         "greedy_cover": "nlzm_tpu/ops/encode_ops.py:149",
         "repify": "nlzm_tpu/ops/encode_ops.py:367",
         "plane_encode": "nlzm_tpu/ops/wide_encode_dev.py:33",
+        "emit_model": "nlzm_tpu/ops/encode_ops.py:438",
+        "rans_backward": "nlzm_tpu/ops/encode_ops.py:586",
+        "bits_forward": "nlzm_tpu/ops/encode_ops.py:658",
     }
     shapes = dict.fromkeys(replaces, "e2e_ship buckets")
     shapes["fsm_decode"] = "e2e_v1_bench buckets"
     shapes.update(dict.fromkeys(ENC_KERNELS[:3], "8 MB at 32 KiB blocks, 245 blocks"))
     shapes["plane_encode"] = "the bench's 8 MB commands, five planes with priors"
+    shapes.update(dict.fromkeys(V1ENC_KERNELS[3:], "8 MiB at 8 KiB blocks, 1024 blocks"))
     paths = {"e2e_ship": wide_launches, "e2e_v1_bench": v1_launches,
-             **{f"stream_{f}": c for f, c in stream_launches.items()}, **enc_launches}
+             **{f"stream_{f}": c for f, c in stream_launches.items()}, **enc_launches,
+             **v1enc_launches}
     rows = []
     for n in replaces:
         r = tally.k[n]

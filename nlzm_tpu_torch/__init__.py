@@ -3,12 +3,14 @@
 A port of the device paths of nlzm_tpu (JAX) to PyTorch on an NVIDIA
 Hopper GPU: the wide-profile and the v1 block decode
 (parallel/blocks.py::decode_container), the bounded-memory file decode
-(parallel/stream.py::decode_container_stream), and the wide-profile
-device encode (encode_container(profile="wide", parser="greedy",
-engine="device"): the greedy device parse of ops/encode_ops.py, then the
-plane encode of ops/wide_encode_dev.py). Each jitted device function of
-nlzm_tpu on those paths is a CUDA kernel written by hand
-(nlzm_tpu_torch/csrc) beside a plain PyTorch version.
+and encode (parallel/stream.py::decode_container_stream,
+encode_container_stream), and the device encodes with the greedy parse
+(encode_container(parser="greedy", engine="device")): the wide profile
+through the device parse of ops/encode_ops.py and the plane encode of
+ops/wide_encode_dev.py, v1 wholly on the device (ops/encode_ops.py:
+parse, model emission, rANS, bit packing), in memory and from files.
+Each jitted device function of nlzm_tpu on those paths is a CUDA kernel
+written by hand (nlzm_tpu_torch/csrc) beside a plain PyTorch version.
 
 The port keeps its own copies of the host modules it needs (constants,
 format/wide.py, container parsing, the native binding, utils/crc32.py),
@@ -23,14 +25,15 @@ with nvcc at first use into .build/torch_kernels/). Entry points run on
 needs neither CUDA nor JAX.
 """
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"
 
-from .ops.encode_ops import parse_blocks_device
+from .ops.encode_ops import encode_blocks_device, parse_blocks_device
 from .ops.wide_encode_dev import encode_wide_blocks_device
 from .parallel.blocks import decode_container, encode_container
-from .parallel.stream import decode_container_stream
+from .parallel.stream import decode_container_stream, encode_container_stream
 
 __all__ = [
-    "decode_container", "decode_container_stream", "encode_container",
-    "encode_wide_blocks_device", "parse_blocks_device", "__version__",
+    "decode_container", "decode_container_stream", "encode_blocks_device", "encode_container",
+    "encode_container_stream", "encode_wide_blocks_device", "parse_blocks_device",
+    "__version__",
 ]

@@ -16,3 +16,9 @@ HASH4_MULT = 987660757
 def frame_bits_for(hist_bits: int) -> int:
     """Frame size (bits) derived from window bits (NLZM.cpp:1722)."""
     return max(14, min(17, hist_bits - 2))
+
+
+def chunk_size_for(frame_bits: int) -> int:
+    """Input bytes consumed per frame (NLZM.cpp:1724)."""
+    frame_size = 1 << frame_bits
+    return (frame_size * 15) // 16 - 0x200

@@ -155,11 +155,14 @@ def encode_blocks(data: bytes, block_size: int, hist_bits: int, parser: str = "o
 
 
 def wide_encode_pipeline(data: bytes, block_size: int, hist_bits: int, depth_cap: int = 16,
-                         dictionary: bytes | None = None):
+                         dictionary: bytes | None = None, with_priors: bool = True,
+                         priors_in: bytes | None = None):
     """Full native wide-profile encode: parse -> lift(-split) ->
-    rep-classify -> plane encode, one library call, with the container
-    priors built from these blocks. dictionary: shared-dictionary bytes
-    preloaded before every block, or None.
+    rep-classify -> plane encode, one library call. dictionary:
+    shared-dictionary bytes preloaded before every block, or None.
+    priors_in: encode against this serialized priors blob (the returned
+    blob echoes it); else with_priors builds the container priors from
+    these blocks, or encodes without priors (blob b"").
     Returns (payloads, priors_blob, depths, ncmds)."""
     lib = load()
     n = len(data)
@@ -178,15 +181,20 @@ def wide_encode_pipeline(data: bytes, block_size: int, hist_bits: int, depth_cap
     priors = np.zeros(priors_blob_size(), np.uint8)
     counter = np.zeros(1, np.int64)
     darr = np.frombuffer(dictionary, dtype=np.uint8) if dictionary else None
+    parr = None
+    if priors_in is not None:
+        if len(priors_in) != priors_blob_size():
+            raise ValueError("priors_in blob has the wrong size")
+        parr = np.frombuffer(priors_in, dtype=np.uint8)
     while True:
         rc = lib.nlzmx_wide_encode_data(
-            _u8p(src), n, block_size, hist_bits, depth_cap, 1, threads,
+            _u8p(src), n, block_size, hist_bits, depth_cap, 1 if with_priors else 0, threads,
             _u8p(out), out_cap, sizes.ctypes.data_as(i64p), _u8p(priors),
             depths.ctypes.data_as(i32p), ncmds.ctypes.data_as(i32p),
             counter.ctypes.data_as(i64p),
             _u8p(darr) if darr is not None else None,
             len(darr) if darr is not None else 0,
-            None,  # no priors_in: build the priors from these blocks
+            _u8p(parr) if parr is not None else None,
             0,  # not strict
         )
         if rc != 1:
@@ -201,7 +209,8 @@ def wide_encode_pipeline(data: bytes, block_size: int, hist_bits: int, depth_cap
     for b in range(nblocks):
         payloads.append(out[off : off + int(sizes[b])].tobytes())
         off += int(sizes[b])
-    return payloads, priors.tobytes(), depths, [int(c) for c in ncmds]
+    blob = priors_in if priors_in is not None else (priors.tobytes() if with_priors else b"")
+    return payloads, blob, depths, [int(c) for c in ncmds]
 
 
 def _i32p(arr: np.ndarray):

@@ -5,11 +5,13 @@ constants, ContainerInfo, parse_container, CRC verification, payload
 slicing, dictionary sampling and (de)compression) is a copy of the
 original; tests/test_torch_host.py pins its output to it. Encode runs on
 the native host engine (the wide profile through
-native.wide_encode_pipeline, v1 through native.encode_blocks) or, for the
-wide profile with the greedy parse, on the device (engine="device":
-ops/encode_ops.py, then ops/wide_encode_dev.py). Decode runs both
-profiles on the device: wide through ops/wide_decode.py, v1 through
-ops/decode_v2.py (fsm_decode_v2) and ops/expand_ops.py.
+native.wide_encode_pipeline, v1 through native.encode_blocks) or, with
+the greedy parse, on the device (engine="device"): the wide profile
+through ops/encode_ops.py's parse and ops/wide_encode_dev.py, v1 through
+ops/encode_ops.py::encode_blocks_device (one frame per block, all on the
+device). Decode runs both profiles on the device: wide through
+ops/wide_decode.py, v1 through ops/decode_v2.py (fsm_decode_v2) and
+ops/expand_ops.py.
 
 Container layout (all integers big-endian):
 
@@ -39,7 +41,7 @@ from .. import native
 from ..constants import frame_bits_for
 from ..format.wide import priors_blob_size
 from ..ops.decode_v2 import fsm_decode_v2
-from ..ops.encode_ops import parse_blocks_device
+from ..ops.encode_ops import encode_blocks_device, parse_blocks_device
 from ..ops.expand_ops import lz_expand_parallel, scatter_blocks
 from ..ops.wide_decode import decode_wide_blocks, dict_tensor
 from ..ops.wide_encode_dev import encode_wide_blocks_device
@@ -123,20 +125,17 @@ def encode_container(
     engine "auto" or "native": the native host engine; profile="wide"
     then needs parser="optimal" (the native wide pipeline), depth_cap
     bounds every byte's literal-ancestor chain depth and dict_size > 0
-    samples a shared dictionary. engine="device": the wide profile encoded
-    on `device` - the greedy device parse (ops/encode_ops.py) and the
-    device plane encode (ops/wide_encode_dev.py); no dictionary.
-    Raises NotImplementedError for the device encodes not ported (the
-    optimal device parse, the v1 device encode: ROADMAP.md queue A items
-    10b and 10a), NativeUnavailable when the native library cannot be
-    built.
+    samples a shared dictionary. engine="device": the greedy device parse
+    (ops/encode_ops.py) on `device`, then for the wide profile the device
+    plane encode (ops/wide_encode_dev.py; no dictionary), for v1 the
+    device model emission, rANS and bit packing (encode_blocks_device:
+    one frame per block, so block_size <= 14848 at hist_bits <= 16, else
+    ValueError). Raises NotImplementedError for parser="optimal" on the
+    device (the optimal device parse is ROADMAP.md queue A item 10b),
+    NativeUnavailable when the native library cannot be built.
     """
     if engine not in ("auto", "native", "device"):
         raise ValueError(f"engine={engine!r}: 'auto', 'native' or 'device'")
-    if engine == "device" and profile != "wide":
-        raise NotImplementedError(
-            f"engine='device', profile={profile!r}: the v1 device encode (emit_model, "
-            "rans_backward, bits_forward) is ROADMAP.md queue A item 10a")
     if engine != "device" and profile == "wide" and parser != "optimal":
         raise NotImplementedError(
             f"engine={engine!r}, parser={parser!r}: the host engine encodes the wide profile "
@@ -182,7 +181,11 @@ def encode_container(
         else:
             dictionary = b""
     elif num_blocks:
-        payloads, reads, cmds = native.encode_blocks(data, block_size, hist_bits, parser)
+        if engine == "device":
+            payloads, reads, cmds = encode_blocks_device(data, block_size, hist_bits, parser,
+                                                         device=device)
+        else:
+            payloads, reads, cmds = native.encode_blocks(data, block_size, hist_bits, parser)
         meta = list(zip(map(len, payloads), reads, cmds))
 
     out = io.BytesIO()

@@ -1,12 +1,16 @@
-"""Bounded-memory NLZP container decode: bucket-at-a-time file I/O.
+"""Bounded-memory NLZP container files: bucket-at-a-time file I/O.
 
-Counterpart of the device branches of nlzm_tpu/parallel/stream.py. The
-file is decoded in buckets of consecutive blocks (default 16 MiB of plain
+Counterpart of nlzm_tpu/parallel/stream.py: the file encode (host
+engines, and the v1 device encode) and the device file decode. The file
+goes through in buckets of consecutive blocks (default 16 MiB of plain
 data per bucket), so host memory stays O(dictionary + bucket) whatever
-the file size; the CRC is accumulated bucket by bucket and checked
-against the stored one at the end. Wire format: the container of
-parallel/blocks.py. The host engines and the stream encoder are not
-ported yet (ROADMAP.md queue A item 7).
+the file size; the CRC is accumulated bucket by bucket. Wire format: the
+container of parallel/blocks.py. The encoder writes placeholders for the
+CRC, the priors and the block table, streams the payloads, and patches
+them in at the end; the wide profile's priors come from the first bucket
+and every later bucket encodes against them (any blob is wire-valid: the
+decoder applies the stored one). The host engines of the file decode are
+not ported (ROADMAP.md queue A item 7).
 """
 
 import os
@@ -14,19 +18,140 @@ import struct
 
 import numpy as np
 
+from .. import native
+from ..constants import frame_bits_for
 from ..format.wide import priors_blob_size
+from ..ops.encode_ops import encode_blocks_device
 from ..ops.wide_decode import decode_wide_blocks, dict_tensor
 from ..utils.crc32 import crc32
 from .blocks import (
-    _BLK, _HDR, FLAG_CRC32, FLAG_DICT, FLAG_PRIORS, FLAG_WIDE, MAGIC, VERSION,
-    ContainerInfo, IntegrityError, _decompress_dict, decode_v1_blocks,
+    _BLK, _HDR, FLAG_CRC32, FLAG_DICT, FLAG_PRIORS, FLAG_WIDE, MAGIC, VERSION, WIDE_MAX_BLOCK,
+    ContainerInfo, IntegrityError, _compress_dict, _decompress_dict, decode_v1_blocks,
+    hist_bits_for_block,
 )
 
 DEFAULT_BUCKET_BYTES = 16 << 20
 
 
+def sample_dict_file(f, flen: int, dict_size: int, segment: int = 2048) -> bytes:
+    """blocks.sample_dict over a seekable file (no whole-file read)."""
+    if dict_size <= 0 or flen <= dict_size:
+        return b""
+    nseg = max(1, dict_size // segment)
+    stride = flen / nseg
+    parts = []
+    for i in range(nseg):
+        f.seek(int(i * stride))
+        parts.append(f.read(segment))
+    return b"".join(parts)[:dict_size]
+
+
 def _bucket_blocks(block_size: int, bucket_bytes: int) -> int:
     return max(1, bucket_bytes // block_size)
+
+
+def encode_container_stream(
+    src_path: str,
+    dst_path: str,
+    block_size: int,
+    parser: str = "optimal",
+    engine: str = "auto",
+    profile: str = "v1",
+    depth_cap: int = 8,
+    dict_size: int = 0,
+    progress=None,
+    bucket_bytes: int = DEFAULT_BUCKET_BYTES,
+    device="cuda",
+) -> dict:
+    """Stream-encode a file into an NLZP container, bucket by bucket.
+
+    The parameters and the wire output of blocks.encode_container, as
+    nlzm_tpu's encode_container_stream writes them (its engine "tpu" is
+    "device" here): engine "auto" or "native" encodes on the native host
+    engine, engine="device" the v1 profile on `device` (greedy parse, one
+    frame per block). The wide profile needs the native optimal-parse
+    pipeline. Returns {"in", "out", "crc32"}.
+    """
+    if engine not in ("auto", "native", "device"):
+        raise ValueError(f"engine={engine!r}: 'auto', 'native' or 'device'")
+    flen = os.stat(src_path).st_size
+    num_blocks = (flen + block_size - 1) // block_size if flen else 0
+    if profile == "wide":
+        if block_size > WIDE_MAX_BLOCK:
+            raise ValueError("wide profile caps blocks at 128 KiB")
+        if engine == "device" or parser != "optimal":
+            raise ValueError(
+                "streaming wide encode needs the native optimal-parse "
+                "pipeline (engine != 'device', parser='optimal')")
+
+    dictionary = b""
+    with open(src_path, "rb") as f:
+        if dict_size and profile == "wide" and num_blocks:
+            dictionary = sample_dict_file(f, flen, dict_size)
+    hist_bits = hist_bits_for_block(len(dictionary) + block_size)
+
+    flags = FLAG_CRC32
+    if profile == "wide" and num_blocks:
+        flags |= FLAG_WIDE | FLAG_PRIORS
+        if dictionary:
+            flags |= FLAG_DICT
+
+    meta = np.zeros((num_blocks, 3), dtype=">u4")
+    crc = 0
+    bucket_nb = _bucket_blocks(block_size, bucket_bytes)
+    priors_blob = None
+
+    with open(src_path, "rb") as fin, open(dst_path, "wb+") as out:
+        out.write(_HDR.pack(MAGIC, VERSION, hist_bits, frame_bits_for(hist_bits), flags,
+                            block_size, flen, num_blocks))
+        crc_off = out.tell()
+        out.write(bytes(4))  # the CRC, patched in at the end
+        priors_off = out.tell()
+        if flags & FLAG_PRIORS:
+            out.write(bytes(priors_blob_size()))  # patched in at the end
+        if flags & FLAG_DICT:
+            dcomp = _compress_dict(dictionary)
+            out.write(struct.pack(">II", len(dictionary), len(dcomp)))
+            out.write(dcomp)
+        meta_off = out.tell()
+        out.write(bytes(_BLK.size * num_blocks))  # patched in at the end
+
+        done = 0
+        b0 = 0
+        while b0 < num_blocks:
+            nb = min(bucket_nb, num_blocks - b0)
+            chunk = fin.read(nb * block_size)
+            crc = crc32(chunk, crc)
+            if profile == "wide":
+                payloads, blob, reads, cmds = native.wide_encode_pipeline(
+                    chunk, block_size, hist_bits, depth_cap=depth_cap,
+                    dictionary=dictionary or None, with_priors=priors_blob is None,
+                    priors_in=priors_blob)
+                if priors_blob is None:
+                    priors_blob = blob
+            elif engine == "device":
+                payloads, reads, cmds = encode_blocks_device(chunk, block_size, hist_bits,
+                                                             parser, device=device)
+            else:
+                payloads, reads, cmds = native.encode_blocks(chunk, block_size, hist_bits,
+                                                             parser)
+            for k, p in enumerate(payloads):
+                meta[b0 + k] = (len(p), int(reads[k]), cmds[k])  # wide: reads = chain depth
+                out.write(p)
+            done += len(chunk)
+            b0 += nb
+            if progress is not None:
+                progress.update(done, out.tell())
+
+        total_out = out.tell()
+        out.seek(crc_off)
+        out.write(struct.pack(">I", crc))
+        if flags & FLAG_PRIORS:
+            out.seek(priors_off)
+            out.write(priors_blob)
+        out.seek(meta_off)
+        out.write(meta.tobytes())
+    return {"in": flen, "out": total_out, "crc32": crc}
 
 
 def read_container_head(f) -> ContainerInfo:

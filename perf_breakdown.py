@@ -7,14 +7,16 @@ goes on one GPU.
 Decodes the 8 MB bench corpus (chip_smoke.build_corpus) from container
 bytes in host memory, at the wide shipping config and at the bench's v1
 config, stage by stage through the functions decode_container runs; and
-encodes it with the wide greedy device encode (32 KiB blocks), stage by
-stage through the functions encode_container(engine="device") runs:
-host clock around each stage, with a torch.cuda.synchronize() at every
-boundary, min and median over REPS runs. Then one decode of each, and one
-encode_container(engine="device"), under torch.profiler: device time by
-kernel, and the device's busy share of the wall time. Prints one JSON
-line per measurement and the card line of nvidia-smi. Needs a CUDA
-device; imports the port and chip_smoke.py only.
+encodes it with the wide greedy device encode (32 KiB blocks) and, on 8
+MiB (chip_smoke.V1_ENC_BYTES), the v1 device encode (8 KiB blocks), stage
+by stage through the functions
+encode_container(engine="device") runs: host clock around each stage,
+with a torch.cuda.synchronize() at every boundary, min and median over
+REPS runs. Then one decode of each, and one encode_container(engine=
+"device") of each profile, under torch.profiler: device time by kernel,
+and the device's busy share of the wall time. Prints one JSON line per
+measurement and the card line of nvidia-smi. Needs a CUDA device;
+imports the port and chip_smoke.py only.
 """
 
 import json
@@ -33,6 +35,7 @@ from nlzm_tpu_torch.ops import wide_decode as wd
 from nlzm_tpu_torch.ops import wide_encode_dev as we
 from nlzm_tpu_torch.ops.expand_ops import scatter_blocks
 from nlzm_tpu_torch.parallel import blocks
+from nlzm_tpu_torch.utils.crc32 import crc32
 
 REPS = 6
 
@@ -131,36 +134,98 @@ def encode_stages(data: bytes, dev) -> dict:
     return c.ms
 
 
+def v1_encode_stages(data: bytes, dev) -> dict:
+    """The v1 device encode, stage by stage: encode_blocks_device's
+    upload, its six kernels (encode_pipeline_device), frame_payloads (copy
+    back, payload bytes), then the container's CRC."""
+    N, hist_bits = chip_smoke.V1_ENC["block_size"], chip_smoke.V1_ENC_HIST_BITS
+    T = (N + 255) // 256 * 256
+    rans_cap, bits_cap = ((3 * N + 64 + 255) // 256) * 256, ((N + 64 + 255) // 256) * 256
+    c = Clock()
+    arr, n_valid = eo._blocks_arrays(data, N)
+    dt, nv = torch.as_tensor(arr, device=dev), torch.as_tensor(n_valid, device=dev)
+    c.lap("_blocks_arrays + upload")
+    delta, mlen = eo.find_matches(dt, nv, (1 << hist_bits) - 1)
+    c.lap("find_matches")
+    op_len, op_val = eo.greedy_cover(dt, delta, mlen, nv, T)
+    c.lap("greedy_cover")
+    op_rep = eo.repify(op_len, op_val)
+    c.lap("repify")
+    spans, fields, nops = eo.emit_model(op_len, op_val, op_rep)
+    c.lap("emit_model")
+    stream, rans_bytes = eo.rans_backward(spans, rans_cap)
+    c.lap("rans_backward")
+    bits, bits_n = eo.bits_forward(fields, bits_cap)
+    ncmds = (op_len >= 0).sum(dim=0, dtype=torch.int32)
+    c.lap("bits_forward (+ command count)")
+    payloads, _, _ = eo.frame_payloads(stream, rans_bytes, bits, bits_n, nops, ncmds)
+    c.lap("frame_payloads (copy back, payload bytes)")
+    crc32(data)
+    c.lap("CRC32 of the input")
+    if payloads != eo.encode_blocks_device(data, N, hist_bits, device=dev)[0]:
+        raise AssertionError("the stages' payloads differ from encode_blocks_device's")
+    c.t = time.perf_counter()  # the check is not a stage
+    blocks.encode_container(data, device=dev, engine="device", **chip_smoke.V1_ENC)
+    c.lap("encode_container(engine='device'), whole, for comparison")
+    return c.ms
+
+
 def check(plain: bytes, data: bytes, info) -> None:
     """The decode's CRC verification (blocks._verified), then the bytes."""
     if blocks._verified(plain, info) != data:
         raise AssertionError("decoded bytes differ from the input")
 
 
-def profile(fn) -> dict:
-    """One fn() (a decode or an encode) under torch.profiler: device ms by
-    kernel."""
-    from torch.profiler import ProfilerActivity, profile as prof
-
-    for _ in range(2):  # the first profile also starts the tracer: keep the second
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-            fn()
-            torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    by = {}
+def device_ms(p) -> dict:
+    """{full kernel key: device ms} of a finished torch.profiler run."""
+    out = {}
     for e in p.key_averages():
         dt = getattr(e, "device_time_total", None)
         if dt is None:
             dt = getattr(e, "cuda_time_total", 0)
         if dt and str(getattr(e, "device_type", "")).endswith("CUDA"):
-            name = re.split(r"[(<]", e.key.replace("(anonymous namespace)::", ""))[0]
-            by[name] = by.get(name, 0.0) + dt / 1e3
+            out[e.key] = out.get(e.key, 0.0) + dt / 1e3
+    return out
+
+
+def profile(fn) -> dict:
+    """One fn() (a decode or an encode) under torch.profiler: device ms by
+    kernel. A short device warm-up (float adds, which the codec never
+    launches; their kernels are told apart by a trace of the warm-up
+    alone) opens the traced window, so the tracer is running before fn's
+    first launch; the wall time is fn's alone."""
+    from torch.profiler import ProfilerActivity, profile as prof
+
+    warm = torch.zeros(1 << 20, device="cuda")
+
+    def warm_up():
+        for _ in range(8):
+            warm.add_(1.0)
+        torch.cuda.synchronize()
+
+    with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        warm_up()
+    warm_keys = set(device_ms(p))
+    for _ in range(2):  # the first profile also starts the tracer: keep the second
+        fn()
+        torch.cuda.synchronize()
+        with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+            warm_up()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    by, warm_ms = {}, 0.0
+    for key, ms in device_ms(p).items():
+        if key in warm_keys:
+            warm_ms += ms
+            continue
+        name = re.split(r"[(<]", key.replace("(anonymous namespace)::", ""))[0]
+        by[name] = by.get(name, 0.0) + ms
     kernels = sum(by.values())
     return {"wall_ms_under_profiler": wall, "device_ms_by_name": by,
-            "device_busy_ms": kernels, "busy_share": kernels / wall if wall else None}
+            "device_busy_ms": kernels, "busy_share": kernels / wall if wall else None,
+            "warm_up_ms_dropped": warm_ms}
 
 
 def main() -> int:
@@ -168,26 +233,31 @@ def main() -> int:
         raise SystemExit("perf_breakdown: needs a CUDA device")
     dev = torch.device("cuda")
     card = chip_smoke.card_line()
-    data = chip_smoke.build_corpus(chip_smoke.SHIP_BYTES)
+    corpus = chip_smoke.build_corpus(max(chip_smoke.SHIP_BYTES, chip_smoke.V1_ENC_BYTES))
+    data, v1_data = corpus[: chip_smoke.SHIP_BYTES], corpus[: chip_smoke.V1_ENC_BYTES]
     cases = {
         "wide_ship": (blocks.encode_container(data, parser="optimal", profile="wide",
                                               **chip_smoke.SHIP), wide_stages),
         "v1_bench": (blocks.encode_container(data, **chip_smoke.V1_BENCH), v1_stages),
     }
     runs_of = {name: (lambda c=c, fn=fn: fn(c, data, dev),
-                      lambda c=c: blocks.decode_container(c, device=dev))
+                      lambda c=c: blocks.decode_container(c, device=dev), len(data))
                for name, (c, fn) in cases.items()}
     runs_of["wide_greedy_encode"] = (
         lambda: encode_stages(data, dev),
         lambda: blocks.encode_container(data, device=dev, engine="device",
-                                        **chip_smoke.ENC_GREEDY))
-    for name, (stages_fn, whole) in runs_of.items():
+                                        **chip_smoke.ENC_GREEDY), len(data))
+    runs_of["v1_device_encode"] = (
+        lambda: v1_encode_stages(v1_data, dev),
+        lambda: blocks.encode_container(v1_data, device=dev, engine="device",
+                                        **chip_smoke.V1_ENC), len(v1_data))
+    for name, (stages_fn, whole, nbytes) in runs_of.items():
         stages_fn()  # warm: kernel builds, allocator
         runs = [stages_fn() for _ in range(REPS)]
         stages = {k: {"min": min(r[k] for r in runs),
                       "median": statistics.median(r[k] for r in runs)} for k in runs[0]}
         total = [sum(v for k, v in r.items() if "for comparison" not in k) for r in runs]
-        print(json.dumps({"case": name, "bytes": len(data), "stages_ms": stages,
+        print(json.dumps({"case": name, "bytes": nbytes, "stages_ms": stages,
                           "total_ms": {"min": min(total), "median": statistics.median(total)},
                           "timing": f"host clock, synchronise at each boundary, {REPS} runs",
                           "card": card}), flush=True)

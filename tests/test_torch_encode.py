@@ -126,9 +126,11 @@ def test_optimal_device_parse_is_not_ported():
                                  parser="optimal", engine="device", device="cpu")
 
 
-@pytest.mark.parametrize("parser", ["greedy", "optimal"])
+@pytest.mark.parametrize("parser", ["optimal"])
 def test_v1_device_encode_is_not_ported(parser):
-    with pytest.raises(NotImplementedError, match="10a"):
+    """The v1 device encode with the optimal parse (the greedy one is in
+    tests/test_torch_v1_encode.py)."""
+    with pytest.raises(NotImplementedError, match="10b"):
         tblocks.encode_container(b"abc" * 100, block_size=N4K, parser=parser,
                                  engine="device", device="cpu")
 
@@ -163,9 +165,9 @@ def test_encode_wrappers_refuse_other_devices():
 
 
 def test_device_encode_runs_without_jax():
-    """The device encode (run here on the CPU) and the decode of its
-    container load nothing of jax, nlzm_tpu or bench.py; a subprocess,
-    since this test process has them loaded."""
+    """The device encodes, wide and v1 (run here on the CPU), and the
+    decodes of their containers load nothing of jax, nlzm_tpu or
+    bench.py; a subprocess, since this test process has them loaded."""
     code = (
         "import sys, torch\n"
         "torch.set_num_threads(1)\n"
@@ -173,6 +175,9 @@ def test_device_encode_runs_without_jax():
         "data = bytes(range(256)) * 20 + b'device encode ' * 300\n"
         "c = nlzm_tpu_torch.encode_container(data, block_size=4096, profile='wide',\n"
         "                                    parser='greedy', engine='device', device='cpu')\n"
+        "assert nlzm_tpu_torch.decode_container(c, device='cpu') == data\n"
+        "c = nlzm_tpu_torch.encode_container(data, block_size=4096, parser='greedy',\n"
+        "                                    engine='device', device='cpu')\n"
         "assert nlzm_tpu_torch.decode_container(c, device='cpu') == data\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'bench', 'nlzm_tpu')\n"
         "             or m.startswith(('jax.', 'nlzm_tpu.')))\n"

@@ -112,6 +112,14 @@ def test_container_constants():
         assert tblocks.sample_dict(data, size) == jblocks.sample_dict(data, size)
 
 
+def test_chunk_size_for():
+    for fb in range(10, 24):
+        assert tconst.chunk_size_for(fb) == jconst.chunk_size_for(fb)
+    for hb in range(10, 30):
+        fb = jconst.frame_bits_for(hb)
+        assert tconst.chunk_size_for(tconst.frame_bits_for(hb)) == jconst.chunk_size_for(fb)
+
+
 def test_crc32():
     rng = np.random.default_rng(5)
     prev = 0
