@@ -4,13 +4,13 @@
     python3 chip_smoke.py
 
 Drives the port's main paths - wide-profile and v1 NLZP container decode,
-in memory and from files, and the wide-profile and v1 device encodes, in
-memory and (v1) to a file - on the card and fails (nonzero exit, no
-result line) on anything wrong:
+in memory and from files, and the wide-profile and v1 device encodes with
+the greedy and the optimal parse, in memory and (v1) to a file - on the
+card and fails (nonzero exit, no result line) on anything wrong:
 
 1. device: a CUDA device is required; prints the card's name and power limit;
-2. build: compiles the twelve kernels from nlzm_tpu_torch/csrc with nvcc,
-   one process per source, all at once;
+2. build: compiles the fifteen kernels (fourteen sources) from
+   nlzm_tpu_torch/csrc with nvcc, one process per source, all at once;
 3. kernels: encodes the bench corpus (8 MB) at the wide shipping config
    with the native host encoder, stages it on the card, and holds each
    wide-path kernel against its plain PyTorch version on the same device
@@ -65,14 +65,30 @@ result line) on anything wrong:
     container through the card's decode (fsm_decode); encode MB/s and
     the ratio;
 18. stream_enc_v1: encode_container_stream of the 8 MiB file to a file on
-    the card, 2 MiB buckets; its bytes must equal 17's container.
+    the card, 2 MiB buckets; its bytes must equal 17's container;
+19. kernels_opt: the optimal parse's kernels at the 8 MiB, 8 KiB-block
+    shapes (3 candidates): dp_parse with the default costs and with the
+    [B, 6] rows measure_costs gives after round 1, dp_cover on its
+    choices, measure_costs on emit_model's spans, each against its plain
+    version, exact, with CUDA-event times; untimed, dp_cover's
+    global-scratch walk at 128 KiB blocks on 1 MiB, and all three on
+    fuzz_opt (wraps and clamps);
+20. e2e_enc_v1_opt: encode_container(parser="optimal", engine="device")
+    of the 8 MiB at 8 KiB blocks, checked as 17; MB/s, the ratio and 17's
+    greedy ratio;
+21. e2e_enc_wide_opt: encode_container(profile="wide", parser="optimal",
+    engine="device") of the 8 MB at 32 KiB blocks, checked as 14;
+22. stream_enc_v1_opt: encode_container_stream of the 8 MiB at its
+    default parser ("optimal"), 2 MiB buckets; its bytes must equal 20's
+    container, and a block above one frame must raise and leave no file.
 
 Launch counts are set to 0 just before each main-path run (4, 5, 8, 9,
-10, both calls of each file in 12, 14, 15, 17 and 18) and read just
-after; a path that did not launch each of its kernels fails. The kernels
-line reports the counts of 4, 8, the to-file calls of 12, 14, 15, 17 and
-18. Each
-phase prints one JSON line. The last three lines are the kernels summary,
+10, both calls of each file in 12, 14, 15, 17, 18, 20, 21 and 22) and
+read just after; a path that did not launch each of its kernels fails,
+and 20-22 must launch exactly the kernels of one optimal-parse encode
+(V1_OPT_LAUNCHES, WIDE_OPT_LAUNCHES; 22 once per bucket). The kernels
+line reports the counts of 4, 8, the to-file calls of 12, 14, 15, 17, 18
+and 20-22. Each phase prints one JSON line. The last three lines are the kernels summary,
 the card line of nvidia-smi, and {"ok": true, "device": ...}. Imports
 nothing of JAX, of nlzm_tpu or of bench.py: the port, and its own copy of
 bench.py's corpus generator.
@@ -114,6 +130,19 @@ V1_ENC_BYTES = 8 << 20  # 1024 blocks; the 8 MB of the other phases is its prefi
 V1_ENC_HIST_BITS = 13  # hist_bits_for_block(8192): reach 8191
 V1_ENC_SMALL_CAP = 101  # rANS and bit sections past it: the dropped writes
 V1ENC_KERNELS = ENC_KERNELS[:3] + ("emit_model", "rans_backward", "bits_forward")
+OPT_KERNELS = ("dp_parse", "dp_cover", "measure_costs")
+V1_OPT = dict(block_size=8192, parser="optimal")  # the v1 device encode, optimal parse
+WIDE_OPT = dict(block_size=32768, profile="wide", parser="optimal")
+WIDE_OPT_REPS = 3  # host-bound (plane batching), ~2 s a call
+BIG_COVER = dict(block_size=131072, bytes=1 << 20)  # dp_cover's global-scratch walk
+# launches of one optimal-parse encode (nlzm_tpu/ops/encode_ops.py:708
+# _calibrated_parse, then the profile's encode); a file encode runs it per bucket
+V1_OPT_LAUNCHES = dict(find_matches=1, dp_parse=3, dp_cover=3, repify=3, emit_model=3,
+                       measure_costs=2, rans_backward=1, bits_forward=1)
+WIDE_OPT_LAUNCHES = dict(find_matches=1, dp_parse=3, dp_cover=3, repify=3, emit_model=2,
+                         measure_costs=2, plane_encode=5)
+V1OPT_KERNELS = tuple(V1_OPT_LAUNCHES)
+WIDEOPT_KERNELS = tuple(WIDE_OPT_LAUNCHES)
 
 
 def build_corpus(n: int) -> bytes:
@@ -175,6 +204,42 @@ def fuzz_commands(seed: int, T: int = 77, B: int = 64):
                       np.where(rng.random((T, B)) < 0.05, rng.integers(-9, 1, (T, B)), dist))
     op_rep = np.where(rng.random((T, B)) < 0.6, -1, rng.integers(0, 8, (T, B)))
     return tuple(a.astype(np.int32) for a in (op_len, op_val, op_rep))
+
+
+def fuzz_opt(seed: int, B: int = 48, N: int = 700, C: int = 3):
+    """Inputs of the optimal-parse kernels drawn from a seed, beyond what a
+    parse gives: data [B, N] uint8 and n_valid [B] (0, N and between);
+    delta / mlen [B, N, C] int32 (distances -5..2^30, lengths -3..300);
+    cost rows [B, 6] int32 within 300 of the i32 limits or small, so that
+    the DP's sums wrap; choice_len [B, N] -3..N + 300 (jumps past n_valid
+    and N) and choice_cand -2..C + 1; spans [T, B, 6] with freq 0, above
+    2^14 and up to 65535 beside commands from fuzz_commands. For the
+    kernels' wraps and clamps; tests/test_torch_optimal_parse.py holds the
+    plain versions to JAX on them."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    i32 = lambda a: np.asarray(a, np.int32)
+    data = rng.integers(0, 256, (B, N)).astype(np.uint8)
+    n_valid = i32(np.where(rng.random(B) < 0.2, rng.choice([0, N], B), rng.integers(1, N, B)))
+    delta = i32(np.where(rng.random((B, N, C)) < 0.3, rng.integers(-5, 2, (B, N, C)),
+                         np.exp2(rng.uniform(0, 30, (B, N, C)))))
+    mlen = i32(rng.integers(-3, 301, (B, N, C)))
+    edge = rng.integers(0, 300, (B, 6))
+    costs = i32(np.select([rng.random((B, 6)) < 0.3, rng.random((B, 6)) < 0.5],
+                          [2**31 - 1 - edge, -(2**31) + edge], rng.integers(-50, 400, (B, 6))))
+    choice_len = i32(np.where(rng.random((B, N)) < 0.1, rng.integers(-3, N + 301, (B, N)),
+                              rng.integers(-3, 40, (B, N))))
+    choice_cand = i32(rng.integers(-2, C + 2, (B, N)))
+    op_len, op_val, op_rep = fuzz_commands(seed, T=N, B=B)
+    shape = (N, B, 6)
+    freq = np.select([rng.random(shape) < 0.2, rng.random(shape) < 0.3],
+                     [0, rng.integers(1 << 14, 1 << 16, shape)], rng.integers(1, 1 << 14, shape))
+    spans = (freq << 16) | rng.integers(0, 1 << 16, shape)
+    spans = np.where(rng.random(shape) < 0.2, 0, spans).astype(np.uint32).view(np.int32)
+    return dict(data=data, n_valid=n_valid, delta=delta, mlen=mlen, costs=costs,
+                choice_len=choice_len, choice_cand=choice_cand,
+                commands=(spans, op_len, op_val, op_rep))
 
 
 def emit(obj) -> None:
@@ -430,6 +495,9 @@ def counters():
         "emit_model": eo.emit_model,
         "rans_backward": eo.rans_backward,
         "bits_forward": eo.bits_forward,
+        "dp_parse": eo.dp_parse,
+        "dp_cover": eo.dp_cover,
+        "measure_costs": eo.measure_costs,
     }
 
 
@@ -693,9 +761,10 @@ def check_kernels_enc(tally: Tally, data: bytes, device):
     return {"blocks": B, "commands": n_cmd, "plane_steps": steps}
 
 
-def run_encode(tally: Tally, data: bytes, device, card: str):
+def run_encode(tally: Tally, data: bytes, device, card: str, ratios: dict):
     """Phases kernels_enc, e2e_enc_greedy and e2e_enc_pipeline; returns
-    {path: main-path launches}."""
+    {path: main-path launches} and puts e2e_enc_greedy's ratio in
+    ratios."""
     from nlzm_tpu_torch import native
     from nlzm_tpu_torch.ops.encode_ops import parse_blocks_device
     from nlzm_tpu_torch.ops.wide_encode_dev import (
@@ -725,6 +794,7 @@ def run_encode(tally: Tally, data: bytes, device, card: str):
     if decode_container(container, device=device) != data:
         raise AssertionError("e2e_enc_greedy: the card's decode differs from the input")
     e2e = best_ms(enc, REPS)
+    ratios["e2e_enc_greedy"] = len(container) / len(data)
     emit({"phase": "e2e_enc_greedy", "ok": True, "bytes": len(data),
           "container_bytes": len(container), "ratio": len(container) / len(data),
           "blocks": len(info.comp_sizes), "launches": by_path["e2e_enc_greedy"],
@@ -807,9 +877,9 @@ def check_kernels_v1enc(tally: Tally, data: bytes, device):
             "bits_cap": bits_cap, "small_cap": cap}
 
 
-def run_v1_encode(tally: Tally, data: bytes, device, card: str):
+def run_v1_encode(tally: Tally, data: bytes, device, card: str, ratios: dict):
     """Phases kernels_v1enc, e2e_enc_v1 and stream_enc_v1; returns {path:
-    main-path launches}."""
+    main-path launches} and puts e2e_enc_v1's ratio in ratios."""
     from nlzm_tpu_torch import encode_container_stream, native
     from nlzm_tpu_torch.parallel.blocks import (
         block_payloads, decode_container, encode_container, parse_container)
@@ -831,6 +901,7 @@ def run_v1_encode(tally: Tally, data: bytes, device, card: str):
     if decode_container(container, device=device) != data:
         raise AssertionError("e2e_enc_v1: the card's decode differs from the input")
     e2e = best_ms(enc, REPS)
+    ratios["e2e_enc_v1"] = len(container) / len(data)
     emit({"phase": "e2e_enc_v1", "ok": True, "bytes": len(data),
           "container_bytes": len(container), "ratio": len(container) / len(data),
           "blocks": len(info.comp_sizes), "launches": by_path["e2e_enc_v1"],
@@ -855,6 +926,194 @@ def run_v1_encode(tally: Tally, data: bytes, device, card: str):
     emit({"phase": "stream_enc_v1", "ok": True, "bytes": len(data),
           "bucket_bytes": STREAM_BUCKET, "buckets": -(-len(data) // STREAM_BUCKET),
           "launches": by_path["stream_enc_v1"], "seconds": secs, "MBps": len(data) / secs / 1e6,
+          "timing": "host clock, one call, file to file", "card": card})
+    return by_path
+
+
+def dp_work(delta, mlen, n_valid, rows, N: int):
+    """dp_parse's (bytes, ops): candidates, counts and cost rows in, two
+    [B, N] choices out; per position ~10 operations (literal edge,
+    reduction, window store), per edge the data makes valid (n in
+    [mmin(d), mlen], d > 0) ~4 (cost add, compare, select): the edges a
+    DP must price, the invalid ones not counted."""
+    import torch
+
+    from nlzm_tpu_torch.ops import encode_ops as eo
+
+    B = delta.shape[0]
+    d = delta.long()
+    mm = eo._mmin(d)
+    edges = 0
+    for n in eo.DP_LENS:
+        edges += int(torch.count_nonzero((d > 0) & (mlen >= n) & (mm <= n)))
+    return nbytes(delta, mlen, n_valid, rows) + 2 * 4 * B * N, 10 * B * N + 4 * edges
+
+
+def check_kernels_opt(tally: Tally, data: bytes, device):
+    """The three optimal-parse kernels against their plain versions at the
+    8 MiB, 8 KiB-block shapes, exact, with CUDA-event times: dp_parse with
+    the default costs and with the [B, 6] rows measure_costs gives after
+    round 1, dp_cover on its choices, measure_costs on emit_model's spans;
+    then, untimed, dp_cover's global-scratch path at 128 KiB blocks on 1
+    MiB and all three on fuzz_opt."""
+    import torch
+
+    from nlzm_tpu_torch.ops import encode_ops as eo
+
+    N = V1_OPT["block_size"]
+    arr, nv = eo._blocks_arrays(data, N)
+    dt, nvt = torch.as_tensor(arr, device=device), torch.as_tensor(nv, device=device)
+    B, T = dt.shape[0], (N + 255) // 256 * 256
+    delta, mlen = eo.find_matches(dt, nvt, (1 << V1_ENC_HIST_BITS) - 1, 3)
+    defaults = eo.default_dp_costs(device).expand(B, 6).contiguous()
+    choice = tally.hold("dp_parse", lambda: eo.dp_parse(delta, mlen, nvt),
+                        lambda: eo.dp_parse_ref(delta, mlen, nvt), reps_plain=1,
+                        work=dp_work(delta, mlen, nvt, defaults, N))
+    cov = (dt, delta, *choice, nvt, T)
+    op_len, op_val = eo.dp_cover(*cov)  # for the work count
+    n_cmd = int(torch.count_nonzero(op_len >= 0))
+    op_len, op_val = tally.hold(
+        "dp_cover", lambda: eo.dp_cover(*cov), lambda: eo.dp_cover_ref(*cov), reps_plain=1,
+        work=(nbytes(*cov[:5], op_len, op_val), 10 * n_cmd + 2 * T * B))
+    op_rep = eo.repify(op_len, op_val)
+    spans, _, _ = eo.emit_model(op_len, op_val, op_rep)
+    mc = (spans, op_len, op_val, op_rep)
+    # measure_costs: ~8 operations a row (loads, family tests), ~4 a span
+    # (table lookup, add)
+    costs = tally.hold("measure_costs", lambda: eo.measure_costs(*mc),
+                       lambda: eo.measure_costs_ref(*mc),
+                       work=(nbytes(*mc) + 4 * 6 * B,
+                             8 * T * B + 4 * int(torch.count_nonzero(spans))))
+    tally.hold("dp_parse", lambda: eo.dp_parse(delta, mlen, nvt, costs),
+               lambda: eo.dp_parse_ref(delta, mlen, nvt, costs), reps_plain=1,
+               work=dp_work(delta, mlen, nvt, costs, N))
+    del delta, mlen, choice, cov
+
+    # N > 32768: the walk's steps and start mask in global scratch
+    big = BIG_COVER["block_size"]
+    arr, nv = eo._blocks_arrays(data[: BIG_COVER["bytes"]], big)
+    bt, bnv = torch.as_tensor(arr, device=device), torch.as_tensor(nv, device=device)
+    bd, bm = eo.find_matches(bt, bnv, big - 1, 3)
+    bcov = (bt, bd, *eo.dp_parse(bd, bm, bnv), bnv, big)
+    tally.hold("dp_cover", lambda: eo.dp_cover(*bcov), lambda: eo.dp_cover_ref(*bcov),
+               timed=False)
+    del bd, bm, bcov
+
+    fz = {k: (tuple(torch.as_tensor(a, device=device) for a in v) if k == "commands"
+              else torch.as_tensor(v, device=device)) for k, v in fuzz_opt(7).items()}
+    for costs_f in (None, fz["costs"]):
+        tally.hold("dp_parse", lambda: eo.dp_parse(fz["delta"], fz["mlen"], fz["n_valid"], costs_f),
+                   lambda: eo.dp_parse_ref(fz["delta"], fz["mlen"], fz["n_valid"], costs_f),
+                   timed=False)
+    fcov = (fz["data"], fz["delta"], fz["choice_len"], fz["choice_cand"], fz["n_valid"],
+            fz["data"].shape[1] + 64)
+    tally.hold("dp_cover", lambda: eo.dp_cover(*fcov), lambda: eo.dp_cover_ref(*fcov),
+               timed=False)
+    tally.hold("measure_costs", lambda: eo.measure_costs(*fz["commands"]),
+               lambda: eo.measure_costs_ref(*fz["commands"]), timed=False)
+    return {"blocks": B, "steps": T, "commands_round1": n_cmd,
+            "big_cover": dict(blocks=bt.shape[0], **BIG_COVER)}
+
+
+def exact_launches(label: str, launches: dict, per_run: dict, runs: int = 1) -> None:
+    """Fail unless the kernels launched are those of per_run, each per_run
+    times runs (the table of one optimal-parse encode; a file encode runs it
+    once per bucket)."""
+    want = {n: c * runs for n, c in per_run.items()}
+    got = {n: c for n, c in launches.items() if c}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+
+
+def run_opt_encode(tally: Tally, data: bytes, device, card: str, greedy: dict):
+    """Phases kernels_opt, e2e_enc_v1_opt, e2e_enc_wide_opt and
+    stream_enc_v1_opt; greedy = {phase: ratio} of the greedy encodes.
+    Returns {path: main-path launches}."""
+    from nlzm_tpu_torch import encode_container_stream, native
+    from nlzm_tpu_torch.ops.encode_ops import parse_blocks_device
+    from nlzm_tpu_torch.ops.wide_encode_dev import encode_wide_blocks_device
+    from nlzm_tpu_torch.parallel.blocks import (
+        block_payloads, decode_container, encode_container, parse_container)
+
+    shape = check_kernels_opt(tally, data, device)
+    emit({"phase": "kernels_opt", "ok": True, **shape, "kernels": tally.summary(OPT_KERNELS),
+          "timing": f"CUDA events, mean of {KERNEL_REPS} back-to-back calls (dp_parse: summed "
+                    f"over its two cost rows); plain: 1 call after its comparison call "
+                    f"(measure_costs {KERNEL_REPS})", "card": card})
+
+    N = V1_OPT["block_size"]
+    by_path = {}
+    enc = lambda: encode_container(data, device=device, engine="device", **V1_OPT)
+    container, by_path["e2e_enc_v1_opt"] = launched("e2e_enc_v1_opt", V1OPT_KERNELS, enc)
+    exact_launches("e2e_enc_v1_opt", by_path["e2e_enc_v1_opt"], V1_OPT_LAUNCHES)
+    info = parse_container(container)
+    for b, p in enumerate(block_payloads(container, info)):
+        if native.decode_block(p, info.hist_bits, N) != data[b * N : (b + 1) * N]:
+            raise AssertionError(f"e2e_enc_v1_opt: native.decode_block differs on block {b}")
+    if decode_container(container, device=device) != data:
+        raise AssertionError("e2e_enc_v1_opt: the card's decode differs from the input")
+    e2e = best_ms(enc, REPS)
+    emit({"phase": "e2e_enc_v1_opt", "ok": True, "bytes": len(data),
+          "container_bytes": len(container), "ratio": len(container) / len(data),
+          "greedy_ratio": greedy["e2e_enc_v1"], "blocks": len(info.comp_sizes),
+          "launches": by_path["e2e_enc_v1_opt"], "e2e_ms": e2e, "e2e_MBps": len(data) / e2e / 1e3,
+          "timing": f"CUDA events around encode_container, best of {REPS}", "card": card})
+
+    wdata = data[:SHIP_BYTES]
+    wenc = lambda: encode_container(wdata, device=device, engine="device", **WIDE_OPT)
+    wcont, by_path["e2e_enc_wide_opt"] = launched("e2e_enc_wide_opt", WIDEOPT_KERNELS, wenc)
+    exact_launches("e2e_enc_wide_opt", by_path["e2e_enc_wide_opt"], WIDE_OPT_LAUNCHES)
+    op_len, op_val, op_rep, _ = parse_blocks_device(
+        wdata, WIDE_OPT["block_size"], ENC_HIST_BITS, parser="optimal", device=device)
+    pd, bd = encode_wide_blocks_device(op_len, op_val, op_rep, device=device)
+    if (pd, bd) != native.wide_encode(op_len, op_val, op_rep):
+        raise AssertionError("e2e_enc_wide_opt: device payloads differ from native.wide_encode")
+    winfo = parse_container(wcont)
+    if block_payloads(wcont, winfo) != pd or winfo.wide_priors != bd:
+        raise AssertionError("e2e_enc_wide_opt: the container does not hold these payloads")
+    if decode_container(wcont, device=device) != wdata:
+        raise AssertionError("e2e_enc_wide_opt: the card's decode differs from the input")
+    e2e = best_ms(wenc, WIDE_OPT_REPS)
+    emit({"phase": "e2e_enc_wide_opt", "ok": True, "bytes": len(wdata),
+          "container_bytes": len(wcont), "ratio": len(wcont) / len(wdata),
+          "greedy_ratio": greedy["e2e_enc_greedy"], "blocks": len(winfo.comp_sizes),
+          "commands": int((op_len >= 0).sum()), "launches": by_path["e2e_enc_wide_opt"],
+          "e2e_ms": e2e, "e2e_MBps": len(wdata) / e2e / 1e3,
+          "timing": f"CUDA events around encode_container, best of {WIDE_OPT_REPS}",
+          "card": card})
+
+    build = Path(__file__).resolve().parent / ".build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        src, dst = Path(tmp) / "in.bin", Path(tmp) / "out.nlzp"
+        src.write_bytes(data)
+        t0 = time.perf_counter()
+        r, by_path["stream_enc_v1_opt"] = launched(  # at the default parser, "optimal"
+            "stream_enc_v1_opt", V1OPT_KERNELS, lambda: encode_container_stream(
+                str(src), str(dst), N, device=device, engine="device",
+                bucket_bytes=STREAM_BUCKET))
+        secs = time.perf_counter() - t0
+        buckets = -(-len(data) // STREAM_BUCKET)
+        exact_launches("stream_enc_v1_opt", by_path["stream_enc_v1_opt"], V1_OPT_LAUNCHES,
+                       buckets)
+        if dst.read_bytes() != container:
+            raise AssertionError("stream_enc_v1_opt: the file differs from e2e_enc_v1_opt's")
+        # a block above the one-frame limit raises before anything is written
+        bad = Path(tmp) / "bad.nlzp"
+        try:
+            encode_container_stream(str(src), str(bad), 2 * N, device=device, engine="device")
+        except ValueError as e:
+            refused = str(e)
+        else:
+            raise AssertionError("stream_enc_v1_opt: a block above one frame did not raise")
+        if bad.exists() or sorted(p.name for p in Path(tmp).iterdir()) != ["in.bin", "out.nlzp"]:
+            raise AssertionError("stream_enc_v1_opt: the failed encode left a file behind")
+    if r != {"in": len(data), "out": len(container), "crc32": zlib.crc32(data)}:
+        raise AssertionError(f"stream_enc_v1_opt: result {r}")
+    emit({"phase": "stream_enc_v1_opt", "ok": True, "bytes": len(data),
+          "bucket_bytes": STREAM_BUCKET, "buckets": buckets,
+          "launches": by_path["stream_enc_v1_opt"], "seconds": secs,
+          "MBps": len(data) / secs / 1e6, "refused": refused,
           "timing": "host clock, one call, file to file", "card": card})
     return by_path
 
@@ -939,8 +1198,10 @@ def main() -> int:
     v1_c, v1_launches = run_v1(tally, data, "cuda", card)
     stream_launches = run_stream([("wide_ship", data, wide_c, WIDE_KERNELS),
                                   ("v1_bench", data, v1_c, V1_KERNELS)], "cuda", card)
-    enc_launches = run_encode(tally, data, "cuda", card)
-    v1enc_launches = run_v1_encode(tally, corpus[:V1_ENC_BYTES], "cuda", card)
+    greedy = {}
+    enc_launches = run_encode(tally, data, "cuda", card, greedy)
+    v1enc_launches = run_v1_encode(tally, corpus[:V1_ENC_BYTES], "cuda", card, greedy)
+    opt_launches = run_opt_encode(tally, corpus[:V1_ENC_BYTES], "cuda", card, greedy)
 
     src = "nlzm_tpu_torch/csrc/"
     replaces = {
@@ -956,22 +1217,29 @@ def main() -> int:
         "emit_model": "nlzm_tpu/ops/encode_ops.py:438",
         "rans_backward": "nlzm_tpu/ops/encode_ops.py:586",
         "bits_forward": "nlzm_tpu/ops/encode_ops.py:658",
+        "dp_parse": "nlzm_tpu/ops/encode_ops.py:203",
+        "dp_cover": "nlzm_tpu/ops/encode_ops.py:288",
+        "measure_costs": "nlzm_tpu/ops/encode_ops.py:321",
     }
+    sources = dict.fromkeys(replaces)
+    sources["dp_cover"] = "greedy_cover"  # the greedy walk's template, its own entry
     shapes = dict.fromkeys(replaces, "e2e_ship buckets")
     shapes["fsm_decode"] = "e2e_v1_bench buckets"
     shapes.update(dict.fromkeys(ENC_KERNELS[:3], "8 MB at 32 KiB blocks, 245 blocks"))
     shapes["plane_encode"] = "the bench's 8 MB commands, five planes with priors"
     shapes.update(dict.fromkeys(V1ENC_KERNELS[3:], "8 MiB at 8 KiB blocks, 1024 blocks"))
+    shapes.update(dict.fromkeys(OPT_KERNELS, "8 MiB at 8 KiB blocks, 1024 blocks, 3 candidates"))
     paths = {"e2e_ship": wide_launches, "e2e_v1_bench": v1_launches,
              **{f"stream_{f}": c for f, c in stream_launches.items()}, **enc_launches,
-             **v1enc_launches}
+             **v1enc_launches, **opt_launches}
     rows = []
     for n in replaces:
         r = tally.k[n]
         b_ms, b_by = bound(r["bytes"], r["ops"])
         by_path = {p: c[n] for p, c in paths.items()}
         rows.append({
-            "name": n, "route": "cuda", "source": f"{src}{n}.cu", "replaces": replaces[n],
+            "name": n, "route": "cuda", "source": f"{src}{sources[n] or n}.cu",
+            "replaces": replaces[n],
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "timed_at": shapes[n],

@@ -4,11 +4,12 @@ A port of the device paths of nlzm_tpu (JAX) to PyTorch on an NVIDIA
 Hopper GPU: the wide-profile and the v1 block decode
 (parallel/blocks.py::decode_container), the bounded-memory file decode
 and encode (parallel/stream.py::decode_container_stream,
-encode_container_stream), and the device encodes with the greedy parse
-(encode_container(parser="greedy", engine="device")): the wide profile
-through the device parse of ops/encode_ops.py and the plane encode of
-ops/wide_encode_dev.py, v1 wholly on the device (ops/encode_ops.py:
-parse, model emission, rANS, bit packing), in memory and from files.
+encode_container_stream), and the device encodes with the greedy or the
+calibrated optimal parse (encode_container(parser="greedy" or "optimal",
+engine="device")): the wide profile through the device parse of
+ops/encode_ops.py and the plane encode of ops/wide_encode_dev.py, v1
+wholly on the device (ops/encode_ops.py: parse, model emission, rANS, bit
+packing), in memory and from files.
 Each jitted device function of nlzm_tpu on those paths is a CUDA kernel
 written by hand (nlzm_tpu_torch/csrc) beside a plain PyTorch version.
 
@@ -25,7 +26,7 @@ with nvcc at first use into .build/torch_kernels/). Entry points run on
 needs neither CUDA nor JAX.
 """
 
-__version__ = "0.4.0"
+__version__ = "0.5.0"
 
 from .ops.encode_ops import encode_blocks_device, parse_blocks_device
 from .ops.wide_encode_dev import encode_wide_blocks_device

@@ -1,22 +1,30 @@
-// Greedy parse: one LZ command per step per block, from the match
-// candidates of find_matches.
+// Command covers: one LZ command per step per block, walking a per-position
+// step from the start of the block. Two entries share the walk:
 //
-// Replaces nlzm_tpu/ops/encode_ops.py::greedy_cover. At the write head the
-// JAX scan takes the match (delta d, length l) if d > 0 and l >= mmin(d),
-// else a literal, and advances by max(length, 1); steps past n_valid emit
-// (-1, the byte at the clamped head). op_len / op_val are [T, B].
+// - nlzm_greedy_cover replaces nlzm_tpu/ops/encode_ops.py::greedy_cover:
+//   at the write head the JAX scan takes the match (delta d, length l) of
+//   find_matches' one candidate if d > 0 and l >= mmin(d), else a literal,
+//   and advances by max(length, 1);
+// - nlzm_dp_cover replaces nlzm_tpu/ops/encode_ops.py::dp_cover: it follows
+//   dp_parse's choices, advancing by max(choice_len, 1); a position with
+//   choice_len > 0 is a match of that length at delta[choice_cand], 0 when
+//   choice_cand is outside [0, C) (the JAX one-hot select), else a literal.
+//
+// Steps past n_valid emit (-1, the byte at the head clamped to N - 1).
+// op_len / op_val are [T, B].
 //
 // Bound: the serial chain of command starts (each start depends on the
 // last), a few thousand dependent steps per block. Design, one CTA per
 // block:
 // 1. every thread computes, for its positions, the step the parse would
-//    take there (the match length, or 1), into shared memory (N <= 32768:
-//    128 KiB) or a global scratch row;
+//    take there, into shared memory (N <= 32768: 128 KiB) or a global
+//    scratch row;
 // 2. thread 0 walks the chain through that array - one shared-memory load
 //    and an add per command - setting a bit per command start;
 // 3. a block scan of the bit counts gives each start its step index, and
 //    the commands and the dead rows are written by all threads at once.
-// n_valid is clamped to [0, N], so the walk stays inside the block.
+// n_valid is clamped to [0, N], so the walk stays inside the block, however
+// far a step jumps.
 #include "common.cuh"
 
 namespace {
@@ -27,12 +35,39 @@ __device__ __forceinline__ int mmin_of(int d) {
   return 2 + (d > 0xFF) + (d > 0xFFF) + (d > 0xFFFFF);
 }
 
-template <bool SMEM>
+// The parse's inputs: greedy (DP false) reads delta [B, N] and mlen as
+// `len`; dp (DP true) reads delta [B, N, C], choice_len as `len` and
+// choice_cand as `cand`.
+template <bool DP>
+struct Choices {
+  const int* __restrict__ delta;
+  const int* __restrict__ len;
+  const int* __restrict__ cand;
+  int C;
+
+  __device__ __forceinline__ int step(long long at) const {  // at = b * N + p
+    const int l = len[at];
+    if constexpr (DP) return max(l, 1);
+    const int d = delta[at];
+    return (d > 0 && l >= mmin_of(d)) ? l : 1;  // a match has l >= 2
+  }
+  // the command at a start p with step st: (length, distance), length 0
+  // for a literal
+  __device__ __forceinline__ int2 command(long long at, int st) const {
+    if constexpr (!DP) return st >= 2 ? make_int2(st, delta[at]) : make_int2(0, 0);
+    const int l = len[at];
+    if (l <= 0) return make_int2(0, 0);
+    const int c = cand[at];
+    return make_int2(l, (c >= 0 && c < C) ? delta[at * C + c] : 0);
+  }
+};
+
+template <bool SMEM, bool DP>
 __global__ void __launch_bounds__(NTHREADS)
-    greedy_cover_kernel(const uint8_t* __restrict__ data, const int* __restrict__ delta,
-                        const int* __restrict__ mlen, const int* __restrict__ n_valid,
-                        int* __restrict__ op_len, int* __restrict__ op_val, int* gstep,
-                        unsigned* gmask, int B, int N, int num_steps) {
+    cover_kernel(const uint8_t* __restrict__ data, Choices<DP> ch,
+                 const int* __restrict__ n_valid, int* __restrict__ op_len,
+                 int* __restrict__ op_val, int* gstep, unsigned* gmask, int B, int N,
+                 int num_steps) {
   extern __shared__ __align__(16) int sdyn[];
   __shared__ int scan_scratch[32][1];
   __shared__ int s_ncmd;
@@ -49,10 +84,7 @@ __global__ void __launch_bounds__(NTHREADS)
     mask = gmask + (long long)b * nwords;
   }
   const long long rowoff = (long long)b * N;
-  for (int p = t; p < N; p += NTHREADS) {
-    const int d = delta[rowoff + p], l = mlen[rowoff + p];
-    step[p] = (d > 0 && l >= mmin_of(d)) ? l : 1;  // a match has l >= 2
-  }
+  for (int p = t; p < N; p += NTHREADS) step[p] = ch.step(rowoff + p);
   for (int w = t; w < nwords; w += NTHREADS) mask[w] = 0u;
   __syncthreads();
 
@@ -84,19 +116,40 @@ __global__ void __launch_bounds__(NTHREADS)
     while (m) {
       const int p = (w << 5) + __ffs(m) - 1;
       m &= m - 1;
-      const bool use = step[p] >= 2;
-      op_len[(long long)s * B + b] = use ? step[p] : 0;
-      op_val[(long long)s * B + b] = use ? delta[rowoff + p] : (int)data[rowoff + p];
+      const int2 cmd = ch.command(rowoff + p, step[p]);
+      op_len[(long long)s * B + b] = cmd.x;
+      op_val[(long long)s * B + b] = cmd.x > 0 ? cmd.y : (int)data[rowoff + p];
       ++s;
     }
   }
   const int ncmd = s_ncmd;
-  const long long end = s_end;  // the head of a finished block: n_valid
+  const long long end = s_end;  // the head of a finished block
   const int tail = (int)data[rowoff + (end < N ? (int)end : N - 1)];
   for (int r = ncmd + t; r < num_steps; r += NTHREADS) {
     op_len[(long long)r * B + b] = -1;
     op_val[(long long)r * B + b] = tail;
   }
+}
+
+template <bool DP>
+int launch_cover(const void* data, Choices<DP> ch, const void* n_valid, void* op_len,
+                 void* op_val, void* gstep, void* gmask, int B, int N, int num_steps,
+                 cudaStream_t s) {
+  if (N <= 32768) {
+    const size_t bytes = (size_t)N * sizeof(int) + (size_t)((N + 31) >> 5) * sizeof(unsigned);
+    auto kern = cover_kernel<true, DP>;
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+    kern<<<B, NTHREADS, bytes, s>>>((const uint8_t*)data, ch, (const int*)n_valid,
+                                    (int*)op_len, (int*)op_val, nullptr, nullptr, B, N,
+                                    num_steps);
+  } else {
+    cover_kernel<false, DP><<<B, NTHREADS, 0, s>>>(
+        (const uint8_t*)data, ch, (const int*)n_valid, (int*)op_len, (int*)op_val,
+        (int*)gstep, (unsigned*)gmask, B, N, num_steps);
+  }
+  return launch_status();
 }
 
 }  // namespace
@@ -110,20 +163,21 @@ NLZM_API int nlzm_greedy_cover(const void* data, const void* delta, const void* 
                                void* stream) {
   cudaSetDevice(device);
   if (B == 0 || N == 0 || num_steps == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (N <= 32768) {
-    const size_t bytes = (size_t)N * sizeof(int) + (size_t)((N + 31) >> 5) * sizeof(unsigned);
-    auto kern = greedy_cover_kernel<true>;
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-    kern<<<B, NTHREADS, bytes, s>>>((const uint8_t*)data, (const int*)delta, (const int*)mlen,
-                                    (const int*)n_valid, (int*)op_len, (int*)op_val, nullptr,
-                                    nullptr, B, N, num_steps);
-  } else {
-    greedy_cover_kernel<false><<<B, NTHREADS, 0, s>>>(
-        (const uint8_t*)data, (const int*)delta, (const int*)mlen, (const int*)n_valid,
-        (int*)op_len, (int*)op_val, (int*)gstep, (unsigned*)gmask, B, N, num_steps);
-  }
-  return launch_status();
+  const Choices<false> ch{(const int*)delta, (const int*)mlen, nullptr, 1};
+  return launch_cover(data, ch, n_valid, op_len, op_val, gstep, gmask, B, N, num_steps,
+                      (cudaStream_t)stream);
+}
+
+// data [B, N] u8; delta [B, N, C] i32; choice_len, choice_cand [B, N] i32;
+// n_valid [B] i32; op_len, op_val [num_steps, B] i32 out; gstep, gmask as
+// for nlzm_greedy_cover.
+NLZM_API int nlzm_dp_cover(const void* data, const void* delta, const void* choice_len,
+                           const void* choice_cand, const void* n_valid, void* op_len,
+                           void* op_val, void* gstep, void* gmask, int B, int N, int C,
+                           int num_steps, int device, void* stream) {
+  cudaSetDevice(device);
+  if (B == 0 || N == 0 || num_steps == 0) return 0;
+  const Choices<true> ch{(const int*)delta, (const int*)choice_len, (const int*)choice_cand, C};
+  return launch_cover(data, ch, n_valid, op_len, op_val, gstep, gmask, B, N, num_steps,
+                      (cudaStream_t)stream);
 }

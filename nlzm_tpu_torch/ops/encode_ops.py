@@ -1,10 +1,15 @@
 """Device encode, in PyTorch with CUDA kernels.
 
-Counterpart of the greedy branch of nlzm_tpu/ops/encode_ops.py:
+Counterpart of nlzm_tpu/ops/encode_ops.py:
 
 1. find_matches: for every position, the k nearest earlier positions with
    the same 4-byte hash, with byte-exact match lengths (<= 264);
-2. greedy_cover: one LZ command per step per block, [T, B];
+2. the parse, one LZ command per step per block, [T, B]: greedy_cover
+   (parser="greedy"), or the calibrated optimal parse (parser="optimal"):
+   three rounds of dp_parse (a backward shortest-path DP over static
+   per-block bit costs) and dp_cover (the walk along its choices), the
+   costs of rounds 2 and 3 measured by measure_costs on the model spans
+   of the round before;
 3. repify: the rep-slot replay that marks matches whose distance is live
    in the 4-slot table;
 4. emit_model: the v1 model run forward over the commands, giving every
@@ -19,15 +24,13 @@ native.lift_deep, between 2 and 3) and then ops/wide_encode_dev.py; the v1
 profile runs 1-6 on the device (encode_blocks_device), one NLZM frame per
 block.
 
-Each kernel (csrc/find_matches.cu, greedy_cover.cu, repify.cu,
-emit_model.cu, rans_backward.cu, bits_forward.cu) has a plain PyTorch
-version beside it (the *_ref functions); the public function runs the
-plain version for CPU tensors and launches the kernel for CUDA tensors.
-Both are exact integer code and agree with the JAX functions array for
-array.
-
-The optimal device parse (dp_parse, dp_cover, measure_costs) is not
-ported: ROADMAP.md queue A item 10b.
+Each kernel (csrc/find_matches.cu, greedy_cover.cu (greedy_cover and
+dp_cover), dp_parse.cu, measure_costs.cu, repify.cu, emit_model.cu,
+rans_backward.cu, bits_forward.cu) has a plain PyTorch version beside it
+(the *_ref functions); the public function runs the plain version for CPU
+tensors and launches the kernel for CUDA tensors. Both are exact integer
+code and agree with the JAX functions array for array; measure_costs
+defines its float32 average exactly (see there).
 """
 
 import numpy as np
@@ -222,6 +225,296 @@ def greedy_cover(data, delta, mlen, n_valid, num_steps: int):
 greedy_cover.launches = 0
 
 
+# ---------------------------------------------------------------- dp_parse
+
+# dp_parse relaxes every length 1..64, then samples longer lengths like the
+# reference's tstep sampling (NLZM.cpp:1558-1560); csrc/dp_parse.cu holds
+# the same table
+DP_LENS = tuple(range(1, 65)) + (72, 80, 96, 112, 128, 160, 192, 224, 264)
+# Static bit costs of the DP parse in 1/16 bit, the JAX package's
+# calibrated estimates of the adapted model's costs: [LIT, CMD_M,
+# LEN_BASE, LEN_SLOPE, LEN_ESC, DIST_SLOT]
+_DP_COSTS = (6 * 16, 2 * 16, 2 * 16, 4, 11 * 16, 5 * 16 + 8)
+_DP_BIG = 1 << 28  # the cost of an invalid edge
+_DP_CANDS = 3  # csrc/dp_parse.cu takes the calibrated parse's three candidates
+_DP_CHUNK = 64  # dp_parse_ref: positions whose window-free edge costs are built at once
+
+
+def default_dp_costs(device="cpu"):
+    """[LIT, CMD_M, LEN_BASE, LEN_SLOPE, LEN_ESC, DIST_SLOT] in 1/16 bit,
+    int32 [6]."""
+    return torch.tensor(_DP_COSTS, dtype=torch.int32, device=device)
+
+
+def _dp_lens(max_len: int):
+    lens = [n for n in DP_LENS if n <= max_len]
+    if not lens:
+        raise ValueError(f"dp_parse: max_len >= 1 expected, got {max_len}")
+    return lens
+
+
+def _cost_rows(costs, B: int, device):
+    """costs None, [6] or [B, 6] int32 -> [B, 6] int32, contiguous."""
+    if costs is None:
+        costs = default_dp_costs(device)
+    if costs.shape not in ((6,), (B, 6)) or costs.dtype != torch.int32:
+        raise ValueError("dp_parse: costs [6] or [B, 6] int32 expected")
+    return costs.expand(B, 6).contiguous()
+
+
+def dp_parse_ref(delta, mlen, n_valid, costs=None, max_len: int = MAX_MLEN):
+    """Plain version of dp_parse: the edges' window-free costs and
+    validity a chunk of positions at a time, then one loop iteration per
+    position, last first. The window is a row of costs by position, zero
+    from N on; all sums are i32 sums that wrap, done in int64."""
+    B, N, C = delta.shape
+    dev = delta.device
+    lens = torch.tensor(_dp_lens(max_len), dtype=torch.long, device=dev)
+    L = len(lens)
+    c = _cost_rows(costs, B, dev).long()
+    c_lit, c_cmd_m, c_len_base, c_slope, c_len_esc, c_dist_slot = c.unbind(1)
+    d = delta.long()
+    dv = d.clamp(min=1) - 1
+    nbits = torch.frexp(dv.clamp(min=1).double())[1].long()  # bit length
+    ab = torch.where(dv >= 4, nbits - 2, 0)
+    dist_c = c_cmd_m[:, None, None] + c_dist_slot[:, None, None] + ab * 16  # [B, N, C]
+    mmin = _mmin(d)
+    flat = torch.arange(L * C, device=dev).view(L, C)
+    active = torch.arange(N, device=dev)[None, :] < n_valid.long()[:, None]
+    cost_at = torch.zeros(B, N + max(max_len, 1) + 1, dtype=torch.long, device=dev)
+    keys = torch.empty(B, N, dtype=torch.long, device=dev)
+    use = torch.empty(B, N, dtype=torch.bool, device=dev)
+    for c0 in range((N - 1) // _DP_CHUNK * _DP_CHUNK, -1, -_DP_CHUNK):
+        c1 = min(c0 + _DP_CHUNK, N)
+        lv = lens[None, None, :, None] - mmin[:, c0:c1, None, :]  # [B, K, L, C]
+        len_c = torch.where(lv < 7, c_len_base[:, None, None, None]
+                            + lv.clamp(min=0) * c_slope[:, None, None, None],
+                            c_len_esc[:, None, None, None])
+        base = dist_c[:, c0:c1, None, :] + len_c
+        valid = ((lv >= 0) & (lens[None, None, :, None] <= mlen[:, c0:c1, None, :].long())
+                 & (d[:, c0:c1, None, :] > 0))
+        for i in range(c1 - 1, c0 - 1, -1):
+            tot = _wrap32(base[:, i - c0] + cost_at[:, i + lens, None])  # [B, L, C]
+            # the first minimum of the flat (length, candidate) order
+            key = (torch.where(valid[:, i - c0], tot, _DP_BIG) * (1 << 32) + flat).view(B, -1)
+            best = key.min(dim=1).values
+            lit_c = _wrap32(c_lit + cost_at[:, i + 1])
+            mc = best >> 32
+            use[:, i] = mc < lit_c
+            cost_at[:, i] = torch.where(active[:, i], torch.where(use[:, i], mc, lit_c), 0)
+            keys[:, i] = best
+    am = keys & _M32
+    choice_len = torch.where(active & use, lens[am // C], 0)
+    return choice_len.to(torch.int32), (am % C).to(torch.int32)
+
+
+def dp_parse(delta, mlen, n_valid, costs=None, max_len: int = MAX_MLEN):
+    """Approximate-cost shortest-path parse, a backward DP per block.
+
+    delta / mlen [B, N, C] int32 (find_matches' candidates; the kernel
+    takes the calibrated parse's C = 3), n_valid [B] int32, costs None
+    (default_dp_costs()), [6] or [B, 6] int32. From the
+    last position back, a position's cost is 0 at or past n_valid, else
+    the cheaper of its literal edge (LIT + cost[i + 1]) and its cheapest
+    match edge: over every length n of DP_LENS up to max_len and every
+    candidate c, CMD_M + DIST_SLOT + 16 * ab(d) + (LEN_BASE + SLOPE * lv
+    if lv < 7 else LEN_ESC) + cost[i + n], with lv = n - mmin(d); the
+    edge is valid when lv >= 0, n <= mlen and d > 0, else it costs
+    _DP_BIG; ties go to the first in (length, candidate) order, and the
+    match is taken only when strictly cheaper. Costs past N are 0; every
+    sum is an i32 sum that wraps. Returns (choice_len [B, N] int32, 0 =
+    literal; choice_cand [B, N] int32, the best edge's candidate even
+    where the literal wins).
+    """
+    if delta.device.type == "cpu":
+        return dp_parse_ref(delta, mlen, n_valid, costs, max_len)
+    _build.check_cuda("dp_parse", delta, mlen, n_valid, costs)
+    if delta.dim() != 3 or mlen.shape != delta.shape or n_valid.shape != delta.shape[:1]:
+        raise ValueError("dp_parse: delta and mlen [B, N, C] int32, n_valid [B] int32")
+    _i32("dp_parse", delta, mlen, n_valid)
+    B, N, C = delta.shape
+    if C != _DP_CANDS:
+        raise ValueError(f"dp_parse: the kernel takes {_DP_CANDS} candidates, got {C}")
+    dev = delta.device
+    L = len(_dp_lens(max_len))
+    rows = _cost_rows(costs, B, dev)
+    choice_len = torch.empty(B, N, dtype=torch.int32, device=dev)
+    choice_cand = torch.empty(B, N, dtype=torch.int32, device=dev)
+    fn = _build.entry("dp_parse", "nlzm_dp_parse", 6, 4)
+    _build.launch(fn, [delta.data_ptr(), mlen.data_ptr(), n_valid.data_ptr(), rows.data_ptr(),
+                       choice_len.data_ptr(), choice_cand.data_ptr()], [B, N, C, L], dev)
+    dp_parse.launches += 1
+    return choice_len, choice_cand
+
+
+dp_parse.launches = 0
+
+
+# ---------------------------------------------------------------- dp_cover
+
+
+def dp_cover_ref(data, delta, choice_len, choice_cand, n_valid, num_steps: int):
+    """Plain version of dp_cover: each position's distance picked at once,
+    then one loop iteration per step, as greedy_cover_ref."""
+    B, N, C = delta.shape
+    dev = data.device
+    data_i = data.long()
+    cl = choice_len.long()
+    cand = choice_cand.long()
+    ok = (cand >= 0) & (cand < C)
+    dist = torch.where(ok, delta.long().gather(2, cand.clamp(0, C - 1)[..., None])[..., 0], 0)
+    nv = n_valid.long()
+    op_len = torch.empty(num_steps, B, dtype=torch.int32, device=dev)
+    op_val = torch.empty(num_steps, B, dtype=torch.int32, device=dev)
+    pos = torch.zeros(B, dtype=torch.long, device=dev)
+    for s in range(num_steps):
+        at = pos.clamp(0, N - 1)[:, None]
+        l = cl.gather(1, at)[:, 0]
+        byte = data_i.gather(1, at)[:, 0]
+        active = pos < nv
+        if s % 64 == 0 and not bool(active.any()):
+            op_len[s:] = -1
+            op_val[s:] = byte.to(torch.int32)
+            break
+        use = active & (l > 0)
+        op_len[s] = torch.where(active, torch.where(use, l, 0), -1).to(torch.int32)
+        op_val[s] = torch.where(use, dist.gather(1, at)[:, 0], byte).to(torch.int32)
+        pos = pos + torch.where(active, l.clamp(min=1), 0)
+    return op_len, op_val
+
+
+def dp_cover(data, delta, choice_len, choice_cand, n_valid, num_steps: int):
+    """Follow the DP choices: one command per step per block.
+
+    data [B, N] uint8, delta [B, N, C] int32, choice_len / choice_cand
+    [B, N] int32 (dp_parse), n_valid [B] int32 in [0, N]. From position 0
+    the walk advances by max(choice_len, 1); a position with choice_len > 0
+    is a match of that length at delta[choice_cand] (0 when choice_cand is
+    outside [0, C)), else a literal of its byte. Returns (op_len, op_val)
+    [num_steps, B] int32 in greedy_cover's format; rows past the end are
+    (-1, the byte at the end, clamped to N - 1).
+    """
+    if data.device.type == "cpu":
+        return dp_cover_ref(data, delta, choice_len, choice_cand, n_valid, num_steps)
+    _build.check_cuda("dp_cover", data, delta, choice_len, choice_cand, n_valid)
+    B, N = data.shape
+    if (data.dtype != torch.uint8 or delta.dim() != 3 or delta.shape[:2] != (B, N)
+            or choice_len.shape != (B, N) or choice_cand.shape != (B, N)
+            or n_valid.shape != (B,)):
+        raise ValueError("dp_cover: data [B, N] uint8, delta [B, N, C], choice_len and "
+                         "choice_cand [B, N], n_valid [B] int32")
+    _i32("dp_cover", delta, choice_len, choice_cand, n_valid)
+    dev = data.device
+    op_len = torch.empty(num_steps, B, dtype=torch.int32, device=dev)
+    op_val = torch.empty(num_steps, B, dtype=torch.int32, device=dev)
+    step = mask = None
+    if N > _SMEM_MAX_N:
+        step = torch.empty(B, N, dtype=torch.int32, device=dev)
+        mask = torch.empty(B, (N + 31) // 32, dtype=torch.int32, device=dev)
+    fn = _build.entry("greedy_cover", "nlzm_dp_cover", 9, 4)
+    _build.launch(fn, [data.data_ptr(), delta.data_ptr(), choice_len.data_ptr(),
+                       choice_cand.data_ptr(), n_valid.data_ptr(), op_len.data_ptr(),
+                       op_val.data_ptr(), None if step is None else step.data_ptr(),
+                       None if mask is None else mask.data_ptr()],
+                  [B, N, delta.shape[2], int(num_steps)], dev)
+    dp_cover.launches += 1
+    return op_len, op_val
+
+
+dp_cover.launches = 0
+
+
+# ----------------------------------------------------------- measure_costs
+
+_FIX_BITS = 32  # measure_costs sums bit costs in fixed point, 2^-32 bit units
+_bits16_tables: dict = {}
+
+
+def bits16_table(device):
+    """int64 [65536]: (14 - log2(max(f, 1))) * 16 * 2^32 for every 16-bit
+    freq f, rounded to an integer; built once per device in float64."""
+    key = str(torch.device(device))
+    t = _bits16_tables.get(key)
+    if t is None:
+        f = np.maximum(np.arange(1 << 16), 1).astype(np.float64)
+        t = np.rint((14.0 - np.log2(f)) * 16.0 * 2.0**_FIX_BITS).astype(np.int64)
+        t = _bits16_tables[key] = torch.as_tensor(t, device=device)
+    return t
+
+
+def _round_half_even(s, cnt):
+    """round(s / (cnt << _FIX_BITS)), ties to even, in integers; cnt > 0."""
+    d = cnt << _FIX_BITS
+    q = torch.div(s, d, rounding_mode="floor")
+    r2 = 2 * (s - q * d)
+    return q + ((r2 > d) | ((r2 == d) & ((q & 1) == 1))).long()
+
+
+def measure_costs_ref(spans, op_len, op_val, op_rep):
+    """Plain version of measure_costs, vectorised: the table lookups, five
+    int64 sums and counts per block, the integer rounding."""
+    T, B, _ = spans.shape
+    sp = spans.long()
+    bits = torch.where(sp != 0, bits16_table(spans.device)[(sp >> 16) & 0xFFFF], 0)
+    L = op_len.long()
+    is_lit, is_match = L == 0, L > 0
+    esc = is_match & (L - _mmin(op_val.long().clamp(min=1)) >= 7)
+    fams = (  # (bits, commands): literal, match command, direct length, escape, distance
+        (bits[..., 0:3].sum(dim=2), is_lit),
+        (bits[..., 0], is_match),
+        (bits[..., 1], is_match & ~esc),
+        (bits[..., 1:4].sum(dim=2), esc),
+        (bits[..., 4:6].sum(dim=2), is_match & (op_rep < 0)),
+    )
+    out = []
+    for (v, m), col in zip(fams, (0, 1, 2, 4, 5)):
+        cnt = m.long().sum(dim=0)
+        avg = _round_half_even((v * m).sum(dim=0), cnt.clamp(min=1))
+        out.append(torch.where(cnt > 4, avg, _DP_COSTS[col]))
+    out.insert(3, torch.full((B,), _DP_COSTS[3], dtype=torch.long, device=spans.device))
+    return torch.stack(out, dim=1).to(torch.int32)
+
+
+def measure_costs(spans, op_len, op_val, op_rep):
+    """Per-block realized DP costs of an emitted command stream.
+
+    spans [T, B, 6] int32 (emit_model's u32 (freq << 16) | start bits),
+    op_len / op_val / op_rep [T, B] int32. A nonzero span costs bits16(f) =
+    (14 - log2(max(f, 1))) * 16 for f = its top 16 bits. Per block, the
+    average cost of five families of commands: literals (spans 0-2),
+    matches (span 0), matches without a length escape (span 1), escapes
+    (spans 1-3), dictionary matches, op_rep < 0 (spans 4-5); a family of
+    4 or fewer commands takes its default_dp_costs() entry, and the slope
+    stays 4. Returns [B, 6] int32 cost rows for dp_parse.
+
+    The JAX function averages float32 sums in XLA's order, which no other
+    order reproduces where an average lies within float32 error of a .5
+    edge. This one is exact by definition: bits16 from bits16_table
+    (float64, in 2^-32 units), int64 sums, the average rounded half to
+    even in integers. Kernel and plain version share the table, so they
+    agree bit for bit.
+    """
+    if spans.device.type == "cpu":
+        return measure_costs_ref(spans, op_len, op_val, op_rep)
+    _build.check_cuda("measure_costs", spans, op_len, op_val, op_rep)
+    if (spans.dim() != 3 or spans.shape[2] != 6 or op_len.shape != spans.shape[:2]
+            or op_val.shape != op_len.shape or op_rep.shape != op_len.shape):
+        raise ValueError("measure_costs: spans [T, B, 6], op_len, op_val and op_rep [T, B] int32")
+    _i32("measure_costs", spans, op_len, op_val, op_rep)
+    T, B, _ = spans.shape
+    dev = spans.device
+    costs = torch.empty(B, 6, dtype=torch.int32, device=dev)
+    fn = _build.entry("measure_costs", "nlzm_measure_costs", 7, 2)
+    _build.launch(fn, [spans.data_ptr(), op_len.data_ptr(), op_val.data_ptr(),
+                       op_rep.data_ptr(), bits16_table(dev).data_ptr(),
+                       default_dp_costs(dev).data_ptr(), costs.data_ptr()], [T, B], dev)
+    measure_costs.launches += 1
+    return costs
+
+
+measure_costs.launches = 0
+
+
 # ------------------------------------------------------------------ repify
 
 
@@ -278,9 +571,15 @@ _ROW_BITS, _Y_BITS = 7, 5  # descriptor: row | (y + 2) << 7 | log2(n) - 2 << 12
 _M32 = 0xFFFFFFFF
 
 
+def _wrap32(x):
+    """int64 -> the int32 value of its low 32 bits (two's complement),
+    still int64: i32 arithmetic that wraps, done in int64."""
+    return ((x & _M32) ^ 0x80000000) - 0x80000000
+
+
 def _as_i32(x):
     """int64 -> int32 keeping the low 32 bits (two's complement)."""
-    return (((x & _M32) ^ 0x80000000) - 0x80000000).to(torch.int32)
+    return _wrap32(x).to(torch.int32)
 
 
 def _emit_commands(op_len, op_val, op_rep):
@@ -584,13 +883,12 @@ def parse_blocks_device(data: bytes, block_size: int, hist_bits: int, parser: st
                         *, device="cuda"):
     """Device parse: blocks -> command arrays, on `device`.
 
-    find_matches and greedy_cover on the device, the depth lift on the
-    host (native.lift_deep, cap 15), repify on the device. Returns
-    (op_len [T, B], op_val, op_rep, depths) as numpy; T = block_size
-    rounded up to 256. parser="optimal" (the calibrated DP parse) is not
-    ported and raises NotImplementedError.
+    The parse on the device (parser "greedy": find_matches and
+    greedy_cover; "optimal": the calibrated DP parse, _calibrated_parse),
+    the depth lift on the host (native.lift_deep, cap 15), repify on the
+    device. Returns (op_len [T, B], op_val, op_rep, depths) as numpy; T =
+    block_size rounded up to 256.
     """
-    _greedy_only(parser)
     arr, n_valid = _blocks_arrays(data, block_size)
     if arr.shape[0] == 0:
         return (np.zeros((0, 0), np.int32),) * 3 + (np.zeros(0, np.int32),)
@@ -598,9 +896,7 @@ def parse_blocks_device(data: bytes, block_size: int, hist_bits: int, parser: st
     dt = torch.as_tensor(arr, device=dev)
     nv = torch.as_tensor(n_valid, device=dev)
     num_steps = ((block_size + 255) // 256) * 256
-    reach = (1 << hist_bits) - 1
-    delta, mlen = find_matches(dt, nv, reach)
-    op_len, op_val = greedy_cover(dt, delta, mlen, nv, num_steps)
+    op_len, op_val = _device_parse(dt, nv, (1 << hist_bits) - 1, num_steps, parser)
     # owned host copies: the lift rewrites op_val through ctypes, which must
     # never write into a tensor's memory (tensor.numpy() shares it)
     op_len_h = np.array(op_len.cpu().numpy(), np.int32, order="C")
@@ -610,11 +906,31 @@ def parse_blocks_device(data: bytes, block_size: int, hist_bits: int, parser: st
     return op_len_h, op_val_h, op_rep.cpu().numpy(), depths
 
 
-def _greedy_only(parser: str) -> None:
+def _calibrated_parse(data, n_valid, reach: int, num_steps: int):
+    """The optimal device parse: three candidates a position, then three
+    rounds of dp_parse and dp_cover; after rounds 1 and 2 the commands'
+    realized costs (repify, emit_model, measure_costs) become the next
+    round's per-block cost rows."""
+    delta, mlen = find_matches(data, n_valid, reach, num_cands=_DP_CANDS)
+    costs = None
+    for i in range(3):
+        choice_len, choice_cand = dp_parse(delta, mlen, n_valid, costs)
+        op_len, op_val = dp_cover(data, delta, choice_len, choice_cand, n_valid, num_steps)
+        if i < 2:
+            op_rep = repify(op_len, op_val)
+            spans, _, _ = emit_model(op_len, op_val, op_rep)
+            costs = measure_costs(spans, op_len, op_val, op_rep)
+    return op_len, op_val
+
+
+def _device_parse(data, n_valid, reach: int, num_steps: int, parser: str):
+    """(op_len, op_val) [num_steps, B] of the named parse, on the device."""
+    if parser == "optimal":
+        return _calibrated_parse(data, n_valid, reach, num_steps)
     if parser != "greedy":
-        raise NotImplementedError(
-            f"parser={parser!r}: the optimal device parse (dp_parse, dp_cover, "
-            "measure_costs) is ROADMAP.md queue A item 10b")
+        raise ValueError(f"parser={parser!r}: 'greedy' or 'optimal'")
+    delta, mlen = find_matches(data, n_valid, reach)
+    return greedy_cover(data, delta, mlen, n_valid, num_steps)
 
 
 def encode_pipeline_device(data, n_valid, reach: int, num_steps: int, rans_cap: int,
@@ -623,15 +939,24 @@ def encode_pipeline_device(data, n_valid, reach: int, num_steps: int, rans_cap: 
     blocks and n_valid [B] int32 in; frame sections out, nothing copied
     back. Returns (stream [B, rans_cap] uint8, rans_bytes [B], bits
     [B, bits_cap] uint8, bits_n [B], nops [B], ncmds [B]), int32 counts."""
-    _greedy_only(parser)
-    delta, mlen = find_matches(data, n_valid, reach)
-    op_len, op_val = greedy_cover(data, delta, mlen, n_valid, num_steps)
+    op_len, op_val = _device_parse(data, n_valid, reach, num_steps, parser)
     op_rep = repify(op_len, op_val)
     spans, fields, nops = emit_model(op_len, op_val, op_rep)
     stream, rans_bytes = rans_backward(spans, rans_cap)
     bits, bits_n = bits_forward(fields, bits_cap)
     ncmds = (op_len >= 0).sum(dim=0, dtype=torch.int32)
     return stream, rans_bytes, bits, bits_n, nops, ncmds
+
+
+def check_one_frame(block_size: int, hist_bits: int) -> None:
+    """Raise ValueError unless a v1 device block fits one frame's chunk."""
+    limit = chunk_size_for(frame_bits_for(hist_bits))
+    if block_size > limit:
+        raise ValueError(
+            f"engine=device v1 blocks encode as one frame each: block_size "
+            f"{block_size} exceeds the frame chunk capacity {limit} at "
+            f"hist_bits {hist_bits} (use -blocks:{limit} or less, or the "
+            f"native engine)")
 
 
 def encode_blocks_device(data: bytes, block_size: int, hist_bits: int, parser: str = "greedy",
@@ -641,13 +966,7 @@ def encode_blocks_device(data: bytes, block_size: int, hist_bits: int, parser: s
     12-byte frame header (u32be item count, 12 + bit-section bytes,
     rANS-section bytes), the bit section and the rANS section. Raises
     ValueError when block_size exceeds one frame's chunk at hist_bits."""
-    limit = chunk_size_for(frame_bits_for(hist_bits))
-    if block_size > limit:
-        raise ValueError(
-            f"engine=device v1 blocks encode as one frame each: block_size "
-            f"{block_size} exceeds the frame chunk capacity {limit} at "
-            f"hist_bits {hist_bits} (use -blocks:{limit} or less, or the "
-            f"native engine)")
+    check_one_frame(block_size, hist_bits)
     arr, n_valid = _blocks_arrays(data, block_size)
     if arr.shape[0] == 0:
         return [], [], []

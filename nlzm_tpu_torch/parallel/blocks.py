@@ -6,8 +6,8 @@ slicing, dictionary sampling and (de)compression) is a copy of the
 original; tests/test_torch_host.py pins its output to it. Encode runs on
 the native host engine (the wide profile through
 native.wide_encode_pipeline, v1 through native.encode_blocks) or, with
-the greedy parse, on the device (engine="device"): the wide profile
-through ops/encode_ops.py's parse and ops/wide_encode_dev.py, v1 through
+the greedy or the optimal parse, on the device (engine="device"): the wide
+profile through ops/encode_ops.py's parse and ops/wide_encode_dev.py, v1 through
 ops/encode_ops.py::encode_blocks_device (one frame per block, all on the
 device). Decode runs both profiles on the device: wide through
 ops/wide_decode.py, v1 through ops/decode_v2.py (fsm_decode_v2) and
@@ -125,14 +125,13 @@ def encode_container(
     engine "auto" or "native": the native host engine; profile="wide"
     then needs parser="optimal" (the native wide pipeline), depth_cap
     bounds every byte's literal-ancestor chain depth and dict_size > 0
-    samples a shared dictionary. engine="device": the greedy device parse
-    (ops/encode_ops.py) on `device`, then for the wide profile the device
-    plane encode (ops/wide_encode_dev.py; no dictionary), for v1 the
-    device model emission, rANS and bit packing (encode_blocks_device:
-    one frame per block, so block_size <= 14848 at hist_bits <= 16, else
-    ValueError). Raises NotImplementedError for parser="optimal" on the
-    device (the optimal device parse is ROADMAP.md queue A item 10b),
-    NativeUnavailable when the native library cannot be built.
+    samples a shared dictionary. engine="device": the device parse
+    (ops/encode_ops.py; parser "greedy", or "optimal", the calibrated DP
+    parse) on `device`, then for the wide profile the device plane encode
+    (ops/wide_encode_dev.py; no dictionary), for v1 the device model
+    emission, rANS and bit packing (encode_blocks_device: one frame per
+    block, so block_size <= 14848 at hist_bits <= 16, else ValueError).
+    Raises NativeUnavailable when the native library cannot be built.
     """
     if engine not in ("auto", "native", "device"):
         raise ValueError(f"engine={engine!r}: 'auto', 'native' or 'device'")

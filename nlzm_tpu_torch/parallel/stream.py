@@ -14,6 +14,7 @@ not ported (ROADMAP.md queue A item 7).
 """
 
 import os
+import secrets
 import struct
 
 import numpy as np
@@ -21,7 +22,7 @@ import numpy as np
 from .. import native
 from ..constants import frame_bits_for
 from ..format.wide import priors_blob_size
-from ..ops.encode_ops import encode_blocks_device
+from ..ops.encode_ops import check_one_frame, encode_blocks_device
 from ..ops.wide_decode import decode_wide_blocks, dict_tensor
 from ..utils.crc32 import crc32
 from .blocks import (
@@ -68,9 +69,16 @@ def encode_container_stream(
     The parameters and the wire output of blocks.encode_container, as
     nlzm_tpu's encode_container_stream writes them (its engine "tpu" is
     "device" here): engine "auto" or "native" encodes on the native host
-    engine, engine="device" the v1 profile on `device` (greedy parse, one
-    frame per block). The wide profile needs the native optimal-parse
-    pipeline. Returns {"in", "out", "crc32"}.
+    engine, engine="device" the v1 profile on `device` (the greedy or the
+    calibrated optimal parse, one frame per block). The wide profile needs
+    the native optimal-parse pipeline. Returns {"in", "out", "crc32"}.
+
+    The archive is written to a temporary file beside dst_path and moved
+    onto it only when the encode succeeds, and the device encode's
+    one-frame limit is checked before anything is written: a failed
+    encode leaves dst_path as it was (absent, or its old bytes). This
+    departs on purpose from nlzm_tpu's function, which writes dst_path in
+    place and leaves a partial archive behind when an encode raises.
     """
     if engine not in ("auto", "native", "device"):
         raise ValueError(f"engine={engine!r}: 'auto', 'native' or 'device'")
@@ -89,6 +97,8 @@ def encode_container_stream(
         if dict_size and profile == "wide" and num_blocks:
             dictionary = sample_dict_file(f, flen, dict_size)
     hist_bits = hist_bits_for_block(len(dictionary) + block_size)
+    if engine == "device":
+        check_one_frame(block_size, hist_bits)
 
     flags = FLAG_CRC32
     if profile == "wide" and num_blocks:
@@ -101,56 +111,65 @@ def encode_container_stream(
     bucket_nb = _bucket_blocks(block_size, bucket_bytes)
     priors_blob = None
 
-    with open(src_path, "rb") as fin, open(dst_path, "wb+") as out:
-        out.write(_HDR.pack(MAGIC, VERSION, hist_bits, frame_bits_for(hist_bits), flags,
-                            block_size, flen, num_blocks))
-        crc_off = out.tell()
-        out.write(bytes(4))  # the CRC, patched in at the end
-        priors_off = out.tell()
-        if flags & FLAG_PRIORS:
-            out.write(bytes(priors_blob_size()))  # patched in at the end
-        if flags & FLAG_DICT:
-            dcomp = _compress_dict(dictionary)
-            out.write(struct.pack(">II", len(dictionary), len(dcomp)))
-            out.write(dcomp)
-        meta_off = out.tell()
-        out.write(bytes(_BLK.size * num_blocks))  # patched in at the end
+    # a temporary file beside dst_path, moved onto it only on success
+    dst_dir, dst_name = os.path.split(os.path.abspath(dst_path))
+    tmp_path = os.path.join(dst_dir, f".{dst_name}.{os.getpid()}.{secrets.token_hex(4)}.tmp")
+    try:
+        with open(src_path, "rb") as fin, open(tmp_path, "xb+") as out:
+            out.write(_HDR.pack(MAGIC, VERSION, hist_bits, frame_bits_for(hist_bits), flags,
+                                block_size, flen, num_blocks))
+            crc_off = out.tell()
+            out.write(bytes(4))  # the CRC, patched in at the end
+            priors_off = out.tell()
+            if flags & FLAG_PRIORS:
+                out.write(bytes(priors_blob_size()))  # patched in at the end
+            if flags & FLAG_DICT:
+                dcomp = _compress_dict(dictionary)
+                out.write(struct.pack(">II", len(dictionary), len(dcomp)))
+                out.write(dcomp)
+            meta_off = out.tell()
+            out.write(bytes(_BLK.size * num_blocks))  # patched in at the end
 
-        done = 0
-        b0 = 0
-        while b0 < num_blocks:
-            nb = min(bucket_nb, num_blocks - b0)
-            chunk = fin.read(nb * block_size)
-            crc = crc32(chunk, crc)
-            if profile == "wide":
-                payloads, blob, reads, cmds = native.wide_encode_pipeline(
-                    chunk, block_size, hist_bits, depth_cap=depth_cap,
-                    dictionary=dictionary or None, with_priors=priors_blob is None,
-                    priors_in=priors_blob)
-                if priors_blob is None:
-                    priors_blob = blob
-            elif engine == "device":
-                payloads, reads, cmds = encode_blocks_device(chunk, block_size, hist_bits,
-                                                             parser, device=device)
-            else:
-                payloads, reads, cmds = native.encode_blocks(chunk, block_size, hist_bits,
-                                                             parser)
-            for k, p in enumerate(payloads):
-                meta[b0 + k] = (len(p), int(reads[k]), cmds[k])  # wide: reads = chain depth
-                out.write(p)
-            done += len(chunk)
-            b0 += nb
-            if progress is not None:
-                progress.update(done, out.tell())
+            done = 0
+            b0 = 0
+            while b0 < num_blocks:
+                nb = min(bucket_nb, num_blocks - b0)
+                chunk = fin.read(nb * block_size)
+                crc = crc32(chunk, crc)
+                if profile == "wide":
+                    payloads, blob, reads, cmds = native.wide_encode_pipeline(
+                        chunk, block_size, hist_bits, depth_cap=depth_cap,
+                        dictionary=dictionary or None, with_priors=priors_blob is None,
+                        priors_in=priors_blob)
+                    if priors_blob is None:
+                        priors_blob = blob
+                elif engine == "device":
+                    payloads, reads, cmds = encode_blocks_device(chunk, block_size, hist_bits,
+                                                                 parser, device=device)
+                else:
+                    payloads, reads, cmds = native.encode_blocks(chunk, block_size, hist_bits,
+                                                                 parser)
+                for k, p in enumerate(payloads):
+                    meta[b0 + k] = (len(p), int(reads[k]), cmds[k])  # wide: reads = chain depth
+                    out.write(p)
+                done += len(chunk)
+                b0 += nb
+                if progress is not None:
+                    progress.update(done, out.tell())
 
-        total_out = out.tell()
-        out.seek(crc_off)
-        out.write(struct.pack(">I", crc))
-        if flags & FLAG_PRIORS:
-            out.seek(priors_off)
-            out.write(priors_blob)
-        out.seek(meta_off)
-        out.write(meta.tobytes())
+            total_out = out.tell()
+            out.seek(crc_off)
+            out.write(struct.pack(">I", crc))
+            if flags & FLAG_PRIORS:
+                out.seek(priors_off)
+                out.write(priors_blob)
+            out.seek(meta_off)
+            out.write(meta.tobytes())
+        os.replace(tmp_path, dst_path)
+    except BaseException:
+        if os.path.exists(tmp_path):
+            os.remove(tmp_path)
+        raise
     return {"in": flen, "out": total_out, "crc32": crc}
 
 

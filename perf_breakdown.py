@@ -7,9 +7,9 @@ goes on one GPU.
 Decodes the 8 MB bench corpus (chip_smoke.build_corpus) from container
 bytes in host memory, at the wide shipping config and at the bench's v1
 config, stage by stage through the functions decode_container runs; and
-encodes it with the wide greedy device encode (32 KiB blocks) and, on 8
-MiB (chip_smoke.V1_ENC_BYTES), the v1 device encode (8 KiB blocks), stage
-by stage through the functions
+encodes it with the wide device encode (32 KiB blocks) and, on 8 MiB
+(chip_smoke.V1_ENC_BYTES), the v1 device encode (8 KiB blocks), each with
+the greedy and the optimal parse, stage by stage through the functions
 encode_container(engine="device") runs: host clock around each stage,
 with a torch.cuda.synchronize() at every boundary, min and median over
 REPS runs. Then one decode of each, and one encode_container(engine=
@@ -38,6 +38,7 @@ from nlzm_tpu_torch.parallel import blocks
 from nlzm_tpu_torch.utils.crc32 import crc32
 
 REPS = 6
+OPT_ROUNDS = 3  # the calibrated parse's rounds (encode_ops._calibrated_parse)
 
 
 class Clock:
@@ -90,20 +91,46 @@ def v1_stages(container: bytes, data: bytes, dev) -> dict:
     return c.ms
 
 
-def encode_stages(data: bytes, dev) -> dict:
-    """The wide greedy device encode, stage by stage: parse_blocks_device
-    (find_matches, greedy_cover, the copy back, lift_deep, repify), then
+def parse_stages(c: Clock, dt, nv, reach: int, T: int, parser: str):
+    """The device parse of encode_ops._device_parse, a lap per kernel
+    launch (laps of one name add up). Returns (op_len, op_val)."""
+    if parser == "greedy":
+        delta, mlen = eo.find_matches(dt, nv, reach)
+        c.lap("find_matches")
+        out = eo.greedy_cover(dt, delta, mlen, nv, T)
+        c.lap("greedy_cover")
+        return out
+    delta, mlen = eo.find_matches(dt, nv, reach, num_cands=3)
+    c.lap("find_matches (3 candidates)")
+    costs = None
+    for i in range(OPT_ROUNDS):
+        choice = eo.dp_parse(delta, mlen, nv, costs)
+        c.lap(f"dp_parse ({OPT_ROUNDS} launches)")
+        op_len, op_val = eo.dp_cover(dt, delta, *choice, nv, T)
+        c.lap(f"dp_cover ({OPT_ROUNDS} launches)")
+        if i < OPT_ROUNDS - 1:
+            op_rep = eo.repify(op_len, op_val)
+            c.lap("repify (calibration)")
+            spans, _, _ = eo.emit_model(op_len, op_val, op_rep)
+            c.lap("emit_model (calibration)")
+            costs = eo.measure_costs(spans, op_len, op_val, op_rep)
+            c.lap(f"measure_costs ({OPT_ROUNDS - 1} launches)")
+    return op_len, op_val
+
+
+def encode_stages(data: bytes, dev, cfg: dict) -> dict:
+    """The wide device encode, stage by stage: parse_blocks_device (the
+    parse's kernels, the copy back, lift_deep, repify), then
     encode_wide_blocks_device (plane batching, priors, upload, the five
-    plane_encode launches, the host assembly)."""
-    N, hist_bits = chip_smoke.ENC_GREEDY["block_size"], chip_smoke.ENC_HIST_BITS
+    plane_encode launches, the host assembly). cfg: chip_smoke.ENC_GREEDY
+    or WIDE_OPT."""
+    N, hist_bits = cfg["block_size"], chip_smoke.ENC_HIST_BITS
     c = Clock()
     arr, n_valid = eo._blocks_arrays(data, N)
     dt, nv = torch.as_tensor(arr, device=dev), torch.as_tensor(n_valid, device=dev)
     c.lap("_blocks_arrays + upload")
-    delta, mlen = eo.find_matches(dt, nv, (1 << hist_bits) - 1)
-    c.lap("find_matches")
-    op_len, op_val = eo.greedy_cover(dt, delta, mlen, nv, (N + 255) // 256 * 256)
-    c.lap("greedy_cover")
+    op_len, op_val = parse_stages(c, dt, nv, (1 << hist_bits) - 1, (N + 255) // 256 * 256,
+                                  cfg["parser"])
     op_len = np.array(op_len.cpu().numpy(), np.int32, order="C")
     op_val = np.array(op_val.cpu().numpy(), np.int32, order="C")
     c.lap("copy back (two [T, B] int32)")
@@ -129,26 +156,24 @@ def encode_stages(data: bytes, dev) -> dict:
     if (payloads, blob) != native.wide_encode(op_len, op_val, op_rep):
         raise AssertionError("device plane encode differs from native.wide_encode")
     c.t = time.perf_counter()  # the check is not a stage
-    blocks.encode_container(data, device=dev, engine="device", **chip_smoke.ENC_GREEDY)
+    blocks.encode_container(data, device=dev, engine="device", **cfg)
     c.lap("encode_container(engine='device'), whole, for comparison")
     return c.ms
 
 
-def v1_encode_stages(data: bytes, dev) -> dict:
+def v1_encode_stages(data: bytes, dev, cfg: dict) -> dict:
     """The v1 device encode, stage by stage: encode_blocks_device's
-    upload, its six kernels (encode_pipeline_device), frame_payloads (copy
-    back, payload bytes), then the container's CRC."""
-    N, hist_bits = chip_smoke.V1_ENC["block_size"], chip_smoke.V1_ENC_HIST_BITS
+    upload, its kernels (encode_pipeline_device), frame_payloads (copy
+    back, payload bytes), then the container's CRC. cfg: chip_smoke.V1_ENC
+    or V1_OPT."""
+    N, hist_bits = cfg["block_size"], chip_smoke.V1_ENC_HIST_BITS
     T = (N + 255) // 256 * 256
     rans_cap, bits_cap = ((3 * N + 64 + 255) // 256) * 256, ((N + 64 + 255) // 256) * 256
     c = Clock()
     arr, n_valid = eo._blocks_arrays(data, N)
     dt, nv = torch.as_tensor(arr, device=dev), torch.as_tensor(n_valid, device=dev)
     c.lap("_blocks_arrays + upload")
-    delta, mlen = eo.find_matches(dt, nv, (1 << hist_bits) - 1)
-    c.lap("find_matches")
-    op_len, op_val = eo.greedy_cover(dt, delta, mlen, nv, T)
-    c.lap("greedy_cover")
+    op_len, op_val = parse_stages(c, dt, nv, (1 << hist_bits) - 1, T, cfg["parser"])
     op_rep = eo.repify(op_len, op_val)
     c.lap("repify")
     spans, fields, nops = eo.emit_model(op_len, op_val, op_rep)
@@ -162,10 +187,10 @@ def v1_encode_stages(data: bytes, dev) -> dict:
     c.lap("frame_payloads (copy back, payload bytes)")
     crc32(data)
     c.lap("CRC32 of the input")
-    if payloads != eo.encode_blocks_device(data, N, hist_bits, device=dev)[0]:
+    if payloads != eo.encode_blocks_device(data, N, hist_bits, cfg["parser"], device=dev)[0]:
         raise AssertionError("the stages' payloads differ from encode_blocks_device's")
     c.t = time.perf_counter()  # the check is not a stage
-    blocks.encode_container(data, device=dev, engine="device", **chip_smoke.V1_ENC)
+    blocks.encode_container(data, device=dev, engine="device", **cfg)
     c.lap("encode_container(engine='device'), whole, for comparison")
     return c.ms
 
@@ -243,14 +268,18 @@ def main() -> int:
     runs_of = {name: (lambda c=c, fn=fn: fn(c, data, dev),
                       lambda c=c: blocks.decode_container(c, device=dev), len(data))
                for name, (c, fn) in cases.items()}
-    runs_of["wide_greedy_encode"] = (
-        lambda: encode_stages(data, dev),
-        lambda: blocks.encode_container(data, device=dev, engine="device",
-                                        **chip_smoke.ENC_GREEDY), len(data))
-    runs_of["v1_device_encode"] = (
-        lambda: v1_encode_stages(v1_data, dev),
-        lambda: blocks.encode_container(v1_data, device=dev, engine="device",
-                                        **chip_smoke.V1_ENC), len(v1_data))
+    for name, cfg in (("wide_greedy_encode", chip_smoke.ENC_GREEDY),
+                      ("wide_optimal_encode", chip_smoke.WIDE_OPT)):
+        runs_of[name] = (
+            lambda cfg=cfg: encode_stages(data, dev, cfg),
+            lambda cfg=cfg: blocks.encode_container(data, device=dev, engine="device", **cfg),
+            len(data))
+    for name, cfg in (("v1_device_encode", chip_smoke.V1_ENC),
+                      ("v1_optimal_encode", chip_smoke.V1_OPT)):
+        runs_of[name] = (
+            lambda cfg=cfg: v1_encode_stages(v1_data, dev, cfg),
+            lambda cfg=cfg: blocks.encode_container(v1_data, device=dev, engine="device", **cfg),
+            len(v1_data))
     for name, (stages_fn, whole, nbytes) in runs_of.items():
         stages_fn()  # warm: kernel builds, allocator
         runs = [stages_fn() for _ in range(REPS)]

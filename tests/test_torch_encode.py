@@ -2,8 +2,9 @@
 functions, exact: find_matches on the text, repetitive, random and zeros
 samples at 4 KiB blocks with one and three candidates and two reaches, and
 on 40000-byte blocks (the JAX 2-key sort path); greedy_cover and repify on
-the JAX outputs; parse_blocks_device end to end; the encodes that are not
-ported; device checks of the wrappers; card-only kernel-vs-plain cases."""
+the JAX outputs; parse_blocks_device end to end; the optimal-parse
+encodes, once not ported; device checks of the wrappers; card-only
+kernel-vs-plain cases."""
 
 import subprocess
 import sys
@@ -16,6 +17,7 @@ import torch
 import jax.numpy as jnp
 
 from nlzm_tpu.ops import encode_ops as jenc
+from nlzm_tpu.parallel import blocks as jblocks
 from nlzm_tpu_torch.ops import encode_ops as tenc
 from nlzm_tpu_torch.parallel import blocks as tblocks
 
@@ -119,20 +121,26 @@ def test_parse_blocks_device_empty():
 
 
 def test_optimal_device_parse_is_not_ported():
-    with pytest.raises(NotImplementedError, match="10b"):
-        tenc.parse_blocks_device(b"abc" * 100, N4K, 12, parser="optimal", device="cpu")
-    with pytest.raises(NotImplementedError, match="10b"):
-        tblocks.encode_container(b"abc" * 100, block_size=N4K, profile="wide",
-                                 parser="optimal", engine="device", device="cpu")
+    """Ported since: the optimal device parse and the wide encode on it
+    equal JAX's (tests/test_torch_optimal_encode.py holds more inputs)."""
+    data = b"abc" * 100
+    got = tenc.parse_blocks_device(data, N4K, 12, parser="optimal", device="cpu")
+    for g, w in zip(got, jenc.parse_blocks_device(data, N4K, 12, parser="optimal"), strict=True):
+        np.testing.assert_array_equal(g, np.asarray(w))
+    kw = dict(block_size=N4K, profile="wide", parser="optimal")
+    assert (tblocks.encode_container(data, engine="device", device="cpu", **kw)
+            == jblocks.encode_container(data, engine="tpu", **kw))
 
 
 @pytest.mark.parametrize("parser", ["optimal"])
 def test_v1_device_encode_is_not_ported(parser):
-    """The v1 device encode with the optimal parse (the greedy one is in
-    tests/test_torch_v1_encode.py)."""
-    with pytest.raises(NotImplementedError, match="10b"):
-        tblocks.encode_container(b"abc" * 100, block_size=N4K, parser=parser,
-                                 engine="device", device="cpu")
+    """Ported since: the v1 device encode with the optimal parse equals
+    JAX's container (the greedy one is in tests/test_torch_v1_encode.py)."""
+    data = b"abc" * 100
+    kw = dict(block_size=N4K, parser=parser)
+    got = tblocks.encode_container(data, engine="device", device="cpu", **kw)
+    assert got == jblocks.encode_container(data, engine="tpu", **kw)
+    assert tblocks.decode_container(got, device="cpu") == data
 
 
 def test_device_engine_refuses_a_dictionary():

@@ -221,8 +221,38 @@ def test_block_larger_than_a_frame_raises():
 
 
 def test_optimal_device_parse_raises():
-    with pytest.raises(NotImplementedError, match="10b"):
-        tenc.encode_blocks_device(b"abc" * 100, N4K, 12, parser="optimal", device="cpu")
+    """It no longer raises: the v1 block encode with the optimal parse
+    equals encode_blocks_tpu's."""
+    data = b"abc" * 100
+    got = tenc.encode_blocks_device(data, N4K, 12, parser="optimal", device="cpu")
+    assert got == jenc.encode_blocks_tpu(data, N4K, 12, parser="optimal")
+
+
+@pytest.mark.parametrize("before", ["absent", "present"])
+def test_failed_stream_encode_leaves_dst_as_it_was(tmp_path, monkeypatch, before):
+    """A file encode that fails, before its first bucket (a block above
+    one frame) or inside its bucket loop, leaves no new dst, does not touch
+    an existing one, and leaves no temporary file."""
+    src, dst = tmp_path / "in.bin", tmp_path / "out.nlzp"
+    src.write_bytes(b"stream" * 30000)
+    old = b"an older archive"
+    if before == "present":
+        dst.write_bytes(old)
+    with pytest.raises(ValueError, match="frame chunk capacity"):
+        tstream.encode_container_stream(str(src), str(dst), 65536, parser="greedy",
+                                        engine="device", device="cpu")
+
+    def fail(*args, **kwargs):
+        raise RuntimeError("encode failed")
+
+    monkeypatch.setattr(tstream, "encode_blocks_device", fail)
+    with pytest.raises(RuntimeError, match="encode failed"):
+        tstream.encode_container_stream(str(src), str(dst), 4096, engine="device",
+                                        device="cpu")
+    assert sorted(p.name for p in tmp_path.iterdir()) == sorted(
+        ["in.bin"] + (["out.nlzp"] if before == "present" else []))
+    if before == "present":
+        assert dst.read_bytes() == old
 
 
 def test_port_container_decodes(corpus_text):
