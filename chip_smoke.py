@@ -9,7 +9,7 @@ the greedy and the optimal parse, in memory and (v1) to a file - on the
 card and fails (nonzero exit, no result line) on anything wrong:
 
 1. device: a CUDA device is required; prints the card's name and power limit;
-2. build: compiles the fifteen kernels (fourteen sources) from
+2. build: compiles the eighteen kernels (seventeen sources) from
    nlzm_tpu_torch/csrc with nvcc, one process per source, all at once;
 3. kernels: encodes the bench corpus (8 MB) at the wide shipping config
    with the native host encoder, stages it on the card, and holds each
@@ -80,15 +80,33 @@ card and fails (nonzero exit, no result line) on anything wrong:
     engine="device") of the 8 MB at 32 KiB blocks, checked as 14;
 22. stream_enc_v1_opt: encode_container_stream of the 8 MiB at its
     default parser ("optimal"), 2 MiB buckets; its bytes must equal 20's
-    container, and a block above one frame must raise and leave no file.
+    container, and a block above one frame must raise and leave no file;
+23. kernels_plane_decode: the unfused plane decode (stage_plane,
+    plane_scan) on the five wire planes of 4's buckets, with the
+    container's priors, against its plain version, exact, with CUDA-event
+    times; its symbols must equal plane_scan_fused's over each block's
+    symbol count; a synthetic 4-row, 16-symbol spec and a 2-read dst spec
+    round-trip through plane_encode, plane_streams, stage_plane and
+    plane_scan, and hold the kernel to its plain version also under
+    hostile context rows;
+24. kernels_research: huff_scan on the 8 MB at 32 KiB blocks and on a
+    container with a truncated payload, ppm_decode on 4 MiB of NLZC at
+    16 KiB blocks (bench.py:371-394) and on its streams cut short (the
+    window clamp), each against its plain version, exact;
+25. e2e_nlzc: ppm_tpu.decompress of that container must return the input
+    and launch exactly huff_scan (its prior) and ppm_decode once; MB/s
+    end to end and with the streams staged, the ratio, the host encode;
+26. e2e_huff0: huff0.decode of the 8 MB container must return the input
+    with one huff_scan launch; MB/s and the ratio.
 
 Launch counts are set to 0 just before each main-path run (4, 5, 8, 9,
-10, both calls of each file in 12, 14, 15, 17, 18, 20, 21 and 22) and
-read just after; a path that did not launch each of its kernels fails,
-and 20-22 must launch exactly the kernels of one optimal-parse encode
-(V1_OPT_LAUNCHES, WIDE_OPT_LAUNCHES; 22 once per bucket). The kernels
-line reports the counts of 4, 8, the to-file calls of 12, 14, 15, 17, 18
-and 20-22. Each phase prints one JSON line. The last three lines are the kernels summary,
+10, both calls of each file in 12, 14, 15, 17, 18, 20, 21, 22, the wire
+plane decodes and the round trips of 23, 25 and 26) and read just after;
+a path that did not launch each of its kernels fails, 20-22 must launch
+exactly the kernels of one optimal-parse encode (V1_OPT_LAUNCHES,
+WIDE_OPT_LAUNCHES; 22 once per bucket), 25 NLZC_LAUNCHES. The kernels
+line reports the counts of 4, 8, the to-file calls of 12, 14, 15, 17, 18,
+20-22, 23, 25 and 26. Each phase prints one JSON line. The last three lines are the kernels summary,
 the card line of nvidia-smi, and {"ok": true, "device": ...}. Imports
 nothing of JAX, of nlzm_tpu or of bench.py: the port, and its own copy of
 bench.py's corpus generator.
@@ -143,6 +161,15 @@ WIDE_OPT_LAUNCHES = dict(find_matches=1, dp_parse=3, dp_cover=3, repify=3, emit_
                          measure_costs=2, plane_encode=5)
 V1OPT_KERNELS = tuple(V1_OPT_LAUNCHES)
 WIDEOPT_KERNELS = tuple(WIDE_OPT_LAUNCHES)
+NLZC = dict(bytes=4 << 20, block_size=16384)  # bench.py:371-394, NLZM_BENCH_NLZC=1
+HUFF0 = dict(bytes=SHIP_BYTES, block_size=32768)  # the huff0 container default
+HUFF0_TRUNC = dict(bytes=256 << 10, block_size=4096)  # a short chain for the plain scan
+NLZC_LAUNCHES = dict(huff_scan=1, ppm_decode=1)  # the prior, then the blocks
+RESEARCH_KERNELS = tuple(NLZC_LAUNCHES)
+# synthetic plane specs (PlaneSpec fields) swapped in for dst: the 4-row
+# spec of tests/test_wide.py and a 2-read one, read 1 keyed by row0 * 8 + y
+SYNTH_PLANES = {"four_row": ("dst", 8, 1, (16,), (4,)), "two_read": ("dst", 24, 2, (8, 16), (4, 32))}
+SYNTH_BLOCKS = 245
 
 
 def build_corpus(n: int) -> bytes:
@@ -481,6 +508,7 @@ def counters():
     from nlzm_tpu_torch.ops import expand_ops as xo
     from nlzm_tpu_torch.ops import wide_decode as wd
     from nlzm_tpu_torch.ops import wide_encode_dev as we
+    from nlzm_tpu_torch.research import huff0, ppm_tpu
 
     return {
         "stage_windows": wd.stage_windows_fused,
@@ -498,6 +526,9 @@ def counters():
         "dp_parse": eo.dp_parse,
         "dp_cover": eo.dp_cover,
         "measure_costs": eo.measure_costs,
+        "plane_decode": wd.plane_scan,
+        "huff_scan": huff0._huff_scan,
+        "ppm_decode": ppm_tpu._decode_blocks,
     }
 
 
@@ -1118,6 +1149,254 @@ def run_opt_encode(tally: Tally, data: bytes, device, card: str, greedy: dict):
     return by_path
 
 
+def synth_plane(fields, seed: int):
+    """A synthetic dst spec's plane over SYNTH_BLOCKS blocks, from a seed:
+    (spec, counts [B], per-read symbols, per-read rows (None for one row),
+    ctx, steps, per-read prior), numpy int32; read r > 0 is keyed by
+    row0 * 8 + the previous read's symbol, as the decoder keys it."""
+    import numpy as np
+
+    from nlzm_tpu_torch.format import wide
+
+    spec = wide.PlaneSpec(*fields)
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, 4001, SYNTH_BLOCKS).astype(np.int32)
+    steps = wide.padded_steps(int(counts.max()), spec.lanes)
+    shape = (SYNTH_BLOCKS, steps * spec.lanes)
+    live = np.arange(shape[1])[None, :] < counts[:, None]
+    ctx = np.where(live, rng.integers(0, spec.rows[0], shape), 0).astype(np.int32)
+    syms, rows = [], []
+    for r in range(spec.reads):
+        row = ctx if r == 0 else ctx * 8 + syms[-1]
+        rows.append(None if spec.rows[r] == 1 else row.astype(np.int32))
+        syms.append(np.where(live, rng.integers(0, spec.alphabets[r], shape), 0).astype(np.int32))
+    prior = [rng.integers(0, 300, (spec.rows[r], spec.alphabets[r])).astype(np.int32)
+             for r in range(spec.reads)]
+    return spec, counts, syms, rows, ctx, steps, prior
+
+
+def plane_decode_work(args):
+    """plane_scan's (bytes, ops) for one plane: seeds, windows, counts,
+    priors and (where a multi-row read keys on them) context rows in,
+    symbols out; per live symbol and read log2(alph) compares (the least
+    a search takes) and ~10 operations of rANS state, per chunk, block
+    and table entry ~4 to rebuild."""
+    from nlzm_tpu_torch.format.wide import PLANES, chunk_schedule
+
+    seeds, wins, n_sym, ctx, idx, steps, prior = args
+    spec = PLANES[idx]
+    B = n_sym.shape[0]
+    live = int(n_sym.long().sum())
+    table = sum(spec.rows[r] * spec.alphabets[r] for r in range(spec.reads))
+    keyed = spec.rows[0] > 1 or (spec.name == "dst" and max(spec.rows[1:], default=1) > 1)
+    return (nbytes(seeds, wins, n_sym, ctx if keyed else None, *(prior or ()))
+            + 4 * B * steps * spec.lanes * spec.reads,
+            live * sum(a.bit_length() + 10 for a in spec.alphabets)
+            + len(chunk_schedule(steps)) * B * table * 4)
+
+
+def check_plane_decode(tally: Tally, container: bytes, device):
+    """Phase 23: the unfused plane decode on the five wire planes of the
+    container's buckets (each plane at its own step count, with the
+    container's priors) against its plain version, and their symbols
+    against plane_scan_fused's; then the synthetic specs' round trips,
+    and the kernel against its plain version on them, also under hostile
+    context rows (untimed). Returns ({path: launches}, shape info)."""
+    import numpy as np
+    import torch
+
+    from nlzm_tpu_torch.format import wide
+    from nlzm_tpu_torch.ops import wide_decode as wd
+    from nlzm_tpu_torch.ops import wide_encode_dev as we
+    from nlzm_tpu_torch.parallel.blocks import block_payloads
+
+    put = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=device)
+    info, buckets = stage(container, device)
+    payloads = block_payloads(container, info)
+    priors = wide.parse_priors(info.wide_priors)
+    jobs = []  # (plane_scan arguments, plane_scan_fused's symbols of the plane)
+    for staged, idx in buckets:
+        fused = wd.plane_scan_fused(staged["seeds_cat"], wd.stage_windows_of(staged),
+                                    staged["n_sym"], staged["steps"], staged["priors"])
+        parsed = [wide.parse_payload(payloads[b]) for b in idx]
+        for p, spec in enumerate(wide.PLANES):
+            counts = [c[0][p] for c in parsed]
+            steps = wide.padded_steps(max(counts), spec.lanes)
+            seeds, wins = wd.stage_plane([c[1][p] for c in parsed], [c[2][p] for c in parsed],
+                                         p, steps, device=device)
+            ctx = torch.zeros(len(idx), steps * spec.lanes, dtype=torch.int32, device=device)
+            jobs.append(((seeds, wins, put(counts), ctx, p, steps,
+                          tuple(put(a) for a in priors[spec.name])), fused[p]))
+    for args, _ in jobs:
+        tally.hold("plane_decode", lambda: wd.plane_scan(*args), lambda: wd.plane_scan_ref(*args),
+                   reps_plain=1, work=plane_decode_work(args))
+    paths = {}
+    ys, paths["plane_decode_ship"] = launched(
+        "plane_decode_ship", ("plane_decode",), lambda: [wd.plane_scan(*a) for a, _ in jobs])
+    for (args, fused_p), (y,) in zip(jobs, ys):
+        live = torch.arange(y.shape[1], device=device)[None, :] < args[2][:, None]
+        if not torch.equal(torch.where(live, y, 0), torch.where(live, fused_p[:, : y.shape[1]], 0)):
+            raise AssertionError(f"kernels_plane_decode: plane {args[4]} differs from "
+                                 f"plane_scan_fused's symbols")
+
+    planes = wide.PLANES
+    hostile = np.array([-1, -7, 4, 31, 32, 1 << 29, (1 << 29) + 3, 1 << 28, -(1 << 31)])
+    synth = {}
+    try:
+        for seed, (name, fields) in enumerate(SYNTH_PLANES.items()):
+            spec, counts, syms, rows, ctx, steps, prior = synth_plane(fields, seed)
+            wide.PLANES = planes[:4] + (spec,)
+            pr = tuple(put(a) for a in prior)
+
+            def round_trip():
+                enc = we.plane_encode(tuple(put(a) for a in syms),
+                                      tuple(None if r is None else put(r) for r in rows),
+                                      put(counts), 4, steps, pr)
+                streams, offsets = we.plane_streams(spec, steps, *enc)
+                seeds, wins = wd.stage_plane(streams, list(offsets), 4, steps, device=device)
+                return (seeds, wins, put(counts), put(ctx), 4, steps, pr), wd.plane_scan(
+                    seeds, wins, put(counts), put(ctx), 4, steps, pr)
+
+            (args, ys), paths[f"plane_roundtrip_{name}"] = launched(
+                f"plane_roundtrip {name}", ("plane_encode", "plane_decode"), round_trip)
+            if any(not np.array_equal(y.cpu().numpy(), a) for y, a in zip(ys, syms, strict=True)):
+                raise AssertionError(f"kernels_plane_decode: {name} did not round-trip")
+            tally.hold("plane_decode", lambda: wd.plane_scan(*args),
+                       lambda: wd.plane_scan_ref(*args), timed=False)
+            bad = ctx.copy()
+            rng = np.random.default_rng(seed)
+            hit = rng.random(bad.shape) < 0.3
+            bad[hit] = rng.choice(hostile, int(hit.sum()))
+            hargs = args[:3] + (put(bad),) + args[4:]
+            tally.hold("plane_decode", lambda: wd.plane_scan(*hargs),
+                       lambda: wd.plane_scan_ref(*hargs), timed=False)
+            synth[name] = {"spec": fields, "blocks": SYNTH_BLOCKS, "steps": steps,
+                           "symbols": int(counts.sum())}
+    finally:
+        wide.PLANES = planes
+    return paths, {"buckets": [len(idx) for _, idx in buckets],
+                   "plane_steps": [a[5] for a, _ in jobs], "synthetic": synth}
+
+
+def ppm_decode_work(args, out):
+    """_decode_blocks' (bytes, ops) on this run's data: words, segment
+    lengths and prior in, bytes out; per live byte 2 reads of ~40
+    operations (17 fence compares, selects, rANS state, rank, count).
+    A table row's fences matter only in a chunk that reads the row, and
+    a carry no chunk added to only halves (a shift, deferred until the
+    row is read), so the rebuild counts, per chunk and table, each row
+    the chunk reads (~10 operations for each of its 16 entries) and each
+    16-row group it reads from (the group sum: ~2 for each of 256)."""
+    import torch
+
+    from nlzm_tpu_torch.research import ppm_tpu
+
+    words, seg_lens, prior, steps = args
+    B, L = seg_lens.shape
+    dev = out.device
+    y = out.long()  # [B, steps, L]; a lane decodes a prefix of its steps
+    prev = torch.nn.functional.pad(y, (0, 0, 1, 0))[:, :-1]
+    prev2 = torch.nn.functional.pad(y, (0, 0, 2, 0))[:, :-2]
+    live = torch.arange(steps, device=dev)[None, :, None] < seg_lens.long()[:, None, :]
+    sched = ppm_tpu.chunk_schedule(steps)
+    chunk = torch.repeat_interleave(torch.arange(len(sched), device=dev),
+                                    torch.tensor(sched, device=dev))
+    key = (chunk[None, :, None] * B + torch.arange(B, device=dev)[:, None, None]) * 2
+    rows = rgroups = 0
+    for t, row in enumerate(((prev << 4) | (prev2 >> 4), ((y >> 4) << 8) | prev)):
+        k = ((key + t) * ppm_tpu.ROWS + row)[live]
+        rows += int(torch.unique(k).numel())
+        rgroups += int(torch.unique(k // ppm_tpu.GROUP).numel())
+    live_n = int(seg_lens.long().sum())
+    return (nbytes(words, seg_lens, prior) + B * steps * L,
+            2 * live_n * 40 + rows * 16 * 10 + rgroups * ppm_tpu.GROUP * 16 * 2)
+
+
+def check_research(tally: Tally, data: bytes, hc: bytes, blob: bytes, device):
+    """Phase 24: huff_scan on the huff0 container hc and on a short one
+    with a truncated payload; ppm_decode on the NLZC container blob, on
+    its streams cut to 40 words (the clamped window reads the last word,
+    which holds data) and on the blob cut short; each against its plain
+    version, exact, the first of each timed. Returns shape info."""
+    from nlzm_tpu_torch.research import huff0, ppm_tpu
+
+    st = huff0.stage_blocks(hc, *huff0._parse(hc), device)
+    hs = st[:5] + st[6:]
+    B, T = st[0].shape[0], st[6]
+    # huff_scan: ~45 operations a step (3 byte loads and their clamps, 14
+    # compares, the selects, the symbol), every block T steps
+    tally.hold("huff_scan", lambda: huff0._huff_scan(*hs), lambda: huff0._huff_scan_ref(*hs),
+               reps_plain=1, work=(nbytes(*hs[:5]) + B * T, 45 * B * T))
+    small = huff0._truncated(huff0.encode(data[: HUFF0_TRUNC["bytes"]], HUFF0_TRUNC["block_size"]))
+    ts = huff0.stage_blocks(small, *huff0._parse(small), device)
+    ts = ts[:5] + ts[6:]
+    tally.hold("huff_scan", lambda: huff0._huff_scan(*ts), lambda: huff0._huff_scan_ref(*ts),
+               timed=False)
+
+    pd, _ = ppm_tpu.stage_container(blob, device)
+    words, steps, nb = pd[0], pd[3], pd[0].shape[0]
+    chunks = len(ppm_tpu.chunk_schedule(steps))
+    work = ppm_decode_work(pd, ppm_tpu._decode_blocks(*pd))  # the decoded bytes, for the count
+    tally.hold("ppm_decode", lambda: ppm_tpu._decode_blocks(*pd),
+               lambda: ppm_tpu._decode_blocks_ref(*pd), reps_plain=1, work=work)
+    cut = (words[:, :40].contiguous(),) + pd[1:]
+    tally.hold("ppm_decode", lambda: ppm_tpu._decode_blocks(*cut),
+               lambda: ppm_tpu._decode_blocks_ref(*cut), timed=False)
+    tw, _ = ppm_tpu.stage_container(blob[:-3001], device)
+    tally.hold("ppm_decode", lambda: ppm_tpu._decode_blocks(*tw),
+               lambda: ppm_tpu._decode_blocks_ref(*tw), timed=False)
+    return {"huff0": {"blocks": B, "steps": T}, "huff0_truncated": {"blocks": ts[0].shape[0]},
+            "nlzc": {"blocks": nb, "steps": steps, "chunks": chunks, "words": words.shape[1]}}
+
+
+def run_research(tally: Tally, data: bytes, device, card: str):
+    """Phases 24-26; returns {path: main-path launches}."""
+    from nlzm_tpu_torch.research import huff0, ppm_tpu
+
+    ndata, hdata = data[: NLZC["bytes"]], data[: HUFF0["bytes"]]
+    t0 = time.perf_counter()
+    blob = ppm_tpu.compress(ndata, NLZC["block_size"])
+    nlzc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hc = huff0.encode(hdata, HUFF0["block_size"])
+    huff0_s = time.perf_counter() - t0
+    shape = check_research(tally, data, hc, blob, device)
+    emit({"phase": "kernels_research", "ok": True, **shape,
+          "kernels": tally.summary(RESEARCH_KERNELS),
+          "timing": f"CUDA events, mean of {KERNEL_REPS} back-to-back calls; plain: 1 call "
+                    f"after its comparison call", "card": card})
+
+    by_path = {}
+    out, by_path["e2e_nlzc"] = launched(
+        "e2e_nlzc", RESEARCH_KERNELS, lambda: ppm_tpu.decompress(blob, device=device))
+    exact_launches("e2e_nlzc", by_path["e2e_nlzc"], NLZC_LAUNCHES)
+    if out != ndata:
+        raise AssertionError("e2e_nlzc: decoded bytes differ from the input")
+    e2e = best_ms(lambda: ppm_tpu.decompress(blob, device=device), REPS)
+    pd, _ = ppm_tpu.stage_container(blob, device)
+    staged = best_ms(lambda: ppm_tpu._decode_blocks(*pd), REPS)
+    emit({"phase": "e2e_nlzc", "ok": True, "bytes": len(ndata), "container_bytes": len(blob),
+          "ratio": len(blob) / len(ndata), "block_size": NLZC["block_size"],
+          "blocks": pd[0].shape[0], "steps": pd[3], "encode_host_s": nlzc_s,
+          "launches": by_path["e2e_nlzc"], "e2e_ms": e2e, "e2e_MBps": len(ndata) / e2e / 1e3,
+          "staged_ms": staged, "staged_MBps": len(ndata) / staged / 1e3,
+          "timing": f"CUDA events around decompress and around _decode_blocks on the staged "
+                    f"container, best of {REPS}", "card": card})
+
+    out, by_path["e2e_huff0"] = launched(
+        "e2e_huff0", ("huff_scan",), lambda: huff0.decode(hc, device=device))
+    exact_launches("e2e_huff0", by_path["e2e_huff0"], {"huff_scan": 1})
+    if out != hdata:
+        raise AssertionError("e2e_huff0: decoded bytes differ from the input")
+    e2e = best_ms(lambda: huff0.decode(hc, device=device), REPS)
+    emit({"phase": "e2e_huff0", "ok": True, "bytes": len(hdata), "container_bytes": len(hc),
+          "ratio": len(hc) / len(hdata), "block_size": HUFF0["block_size"],
+          "encode_host_s": huff0_s, "launches": by_path["e2e_huff0"], "e2e_ms": e2e,
+          "e2e_MBps": len(hdata) / e2e / 1e3,
+          "timing": f"CUDA events around decode, best of {REPS}", "card": card})
+    return by_path
+
+
 def host_best(fn, reps: int) -> float:
     """Best of `reps` host-clock seconds of fn() (which synchronises)."""
     best = float("inf")
@@ -1202,6 +1481,13 @@ def main() -> int:
     enc_launches = run_encode(tally, data, "cuda", card, greedy)
     v1enc_launches = run_v1_encode(tally, corpus[:V1_ENC_BYTES], "cuda", card, greedy)
     opt_launches = run_opt_encode(tally, corpus[:V1_ENC_BYTES], "cuda", card, greedy)
+    plane_launches, plane_shape = check_plane_decode(tally, wide_c, "cuda")
+    emit({"phase": "kernels_plane_decode", "ok": True, **plane_shape,
+          "kernels": tally.summary(("plane_decode",)), "launches": plane_launches,
+          "timing": f"CUDA events, mean of {KERNEL_REPS} back-to-back calls, summed over the "
+                    f"ten wire planes (two buckets); plain: 1 call after its comparison call",
+          "card": card})
+    research_launches = run_research(tally, corpus, "cuda", card)
 
     src = "nlzm_tpu_torch/csrc/"
     replaces = {
@@ -1220,6 +1506,9 @@ def main() -> int:
         "dp_parse": "nlzm_tpu/ops/encode_ops.py:203",
         "dp_cover": "nlzm_tpu/ops/encode_ops.py:288",
         "measure_costs": "nlzm_tpu/ops/encode_ops.py:321",
+        "plane_decode": "nlzm_tpu/ops/wide_decode.py:73",
+        "huff_scan": "nlzm_tpu/research/huff0.py:297",
+        "ppm_decode": "nlzm_tpu/research/ppm_tpu.py:340",
     }
     sources = dict.fromkeys(replaces)
     sources["dp_cover"] = "greedy_cover"  # the greedy walk's template, its own entry
@@ -1229,9 +1518,12 @@ def main() -> int:
     shapes["plane_encode"] = "the bench's 8 MB commands, five planes with priors"
     shapes.update(dict.fromkeys(V1ENC_KERNELS[3:], "8 MiB at 8 KiB blocks, 1024 blocks"))
     shapes.update(dict.fromkeys(OPT_KERNELS, "8 MiB at 8 KiB blocks, 1024 blocks, 3 candidates"))
+    shapes["plane_decode"] = "the e2e_ship buckets' ten wire planes, each at its own steps"
+    shapes["huff_scan"] = "huff0, 8 MB at 32 KiB blocks, 245 blocks"
+    shapes["ppm_decode"] = "NLZC, 4 MiB at 16 KiB blocks, 256 blocks"
     paths = {"e2e_ship": wide_launches, "e2e_v1_bench": v1_launches,
              **{f"stream_{f}": c for f, c in stream_launches.items()}, **enc_launches,
-             **v1enc_launches, **opt_launches}
+             **v1enc_launches, **opt_launches, **plane_launches, **research_launches}
     rows = []
     for n in replaces:
         r = tally.k[n]

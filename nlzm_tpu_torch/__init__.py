@@ -9,12 +9,16 @@ calibrated optimal parse (encode_container(parser="greedy" or "optimal",
 engine="device")): the wide profile through the device parse of
 ops/encode_ops.py and the plane encode of ops/wide_encode_dev.py, v1
 wholly on the device (ops/encode_ops.py: parse, model emission, rANS, bit
-packing), in memory and from files.
+packing), in memory and from files; the unfused multi-row plane decode
+(ops/wide_decode.py stage_plane, plane_scan); and the research codecs'
+device decodes, research/ppm_tpu.py (NLZC, decompress) and
+research/huff0.py (decode).
 Each jitted device function of nlzm_tpu on those paths is a CUDA kernel
 written by hand (nlzm_tpu_torch/csrc) beside a plain PyTorch version.
 
 The port keeps its own copies of the host modules it needs (constants,
-format/wide.py, container parsing, the native binding, utils/crc32.py),
+format/wide.py, container parsing, the native binding, utils/crc32.py,
+the research codecs' host coders),
 pinned to the originals by tests/test_torch_host.py; it imports nothing
 of nlzm_tpu. Every other encode is the native host engine's (native/,
 built at first use).
@@ -26,7 +30,7 @@ with nvcc at first use into .build/torch_kernels/). Entry points run on
 needs neither CUDA nor JAX.
 """
 
-__version__ = "0.5.0"
+__version__ = "0.6.0"
 
 from .ops.encode_ops import encode_blocks_device, parse_blocks_device
 from .ops.wide_encode_dev import encode_wide_blocks_device

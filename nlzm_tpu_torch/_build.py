@@ -25,6 +25,7 @@ KERNELS = (
     "stage_windows", "plane_scan", "assemble", "lz_expand", "fsm_decode",
     "find_matches", "greedy_cover", "repify", "plane_encode",
     "emit_model", "rans_backward", "bits_forward", "dp_parse", "measure_costs",
+    "plane_decode", "huff_scan", "ppm_decode",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

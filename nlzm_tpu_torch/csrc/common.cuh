@@ -90,6 +90,68 @@ __device__ __forceinline__ void build_fences(const int* carry, int* fen, int alp
   __syncwarp();
 }
 
+// Per-read chunk-adaptive tables of a wide-profile plane in dynamic
+// shared memory sm, as plane_encode.cu and plane_decode.cu keep them: read
+// r's fences [rows[r], alph[r] + 1] at sm + fen[r], carries and chunk
+// counts [rows[r], alph[r]] at sm + car[r] and sm + cnt[r]. The whole
+// block calls; (read, row) pairs are dealt to warps round robin.
+//
+// plane_tables_init: carries from the read's prior ([rows, alph] counts)
+// or 0, counts 0, initial fences built from the prior or uniform.
+__device__ __forceinline__ void plane_tables_init(int* sm, const int* fen, const int* car,
+                                                  const int* cnt, const int* alph,
+                                                  const int* rows, const long long* prior_ptr,
+                                                  int R) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5, nwarps = blockDim.x >> 5;
+  for (int r = 0; r < R; ++r) {
+    const int* prior = reinterpret_cast<const int*>(prior_ptr[r]);
+    const int n = rows[r] * alph[r];
+    for (int i = t; i < n; i += blockDim.x) {
+      sm[car[r] + i] = prior ? prior[i] : 0;
+      sm[cnt[r] + i] = 0;
+    }
+  }
+  __syncthreads();
+  for (int r = 0, k = 0; r < R; ++r) {
+    const int a = alph[r];
+    for (int row = 0; row < rows[r]; ++row, ++k) {
+      if (k % nwarps != warp) continue;
+      int* f = sm + fen[r] + row * (a + 1);
+      if (prior_ptr[r]) {
+        build_fences(sm + car[r] + row * a, f, a);
+      } else {
+        for (int i = lane; i <= a; i += 32) f[i] = i < a ? i * (CDF_TOTAL / a) : CDF_TOTAL;
+        __syncwarp();
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// plane_tables_rebuild, at a chunk boundary: carry = (carry >> 1) +
+// counts, counts = 0, fences rebuilt from the carries.
+__device__ __forceinline__ void plane_tables_rebuild(int* sm, const int* fen, const int* car,
+                                                     const int* cnt, const int* alph,
+                                                     const int* rows, int R) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  __syncthreads();  // every count of the chunk is in
+  for (int r = 0, k = 0; r < R; ++r) {
+    const int a = alph[r];
+    for (int row = 0; row < rows[r]; ++row, ++k) {
+      if (k % nwarps != warp) continue;
+      int* c = sm + car[r] + row * a;
+      int* n = sm + cnt[r] + row * a;
+      for (int j = lane; j < a; j += 32) {
+        c[j] = (c[j] >> 1) + n[j];
+        n[j] = 0;
+      }
+      __syncwarp();
+      build_fences(c, sm + fen[r] + row * (a + 1), a);
+    }
+  }
+  __syncthreads();
+}
+
 // Launch epilogue shared by the C entry points: the launch's own error
 // (bad configuration, too many resources) as an int, 0 when it launched.
 static inline int launch_status() { return static_cast<int>(cudaGetLastError()); }

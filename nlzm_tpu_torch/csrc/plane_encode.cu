@@ -48,7 +48,6 @@ __global__ void plane_encode_kernel(const long long* __restrict__ desc,
   __shared__ int s_fen[MAX_R], s_car[MAX_R], s_cnt[MAX_R], s_alph[MAX_R], s_rows[MAX_R];
   __shared__ long long s_sym[MAX_R], s_row[MAX_R], s_pri[MAX_R];
   const int b = blockIdx.x, t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int nwarps = blockDim.x >> 5;
   if (t == 0) {
     int off = 0;
     for (int r = 0; r < R; ++r) {
@@ -67,29 +66,7 @@ __global__ void plane_encode_kernel(const long long* __restrict__ desc,
     }
   }
   __syncthreads();
-  for (int r = 0; r < R; ++r) {
-    const int* prior = reinterpret_cast<const int*>(s_pri[r]);
-    const int n = s_rows[r] * s_alph[r];
-    for (int i = t; i < n; i += blockDim.x) {
-      sm[s_car[r] + i] = prior ? prior[i] : 0;
-      sm[s_cnt[r] + i] = 0;
-    }
-  }
-  __syncthreads();
-  for (int r = 0, k = 0; r < R; ++r) {  // initial tables: uniform, or from the prior
-    const int a = s_alph[r];
-    for (int row = 0; row < s_rows[r]; ++row, ++k) {
-      if (k % nwarps != warp) continue;
-      int* f = sm + s_fen[r] + row * (a + 1);
-      if (s_pri[r]) {
-        build_fences(sm + s_car[r] + row * a, f, a);
-      } else {
-        for (int i = lane; i <= a; i += 32) f[i] = i < a ? i * (CDF_TOTAL / a) : CDF_TOTAL;
-        __syncwarp();
-      }
-    }
-  }
-  __syncthreads();
+  plane_tables_init(sm, s_fen, s_car, s_cnt, s_alph, s_rows, s_pri, R);
 
   const long long Tpad = (long long)steps * L;
   const long long srow = (long long)b * Tpad;  // symbol / row offset of block b
@@ -124,22 +101,7 @@ __global__ void plane_encode_kernel(const long long* __restrict__ desc,
         }
       }
     }
-    __syncthreads();  // every count of the chunk is in
-    for (int r = 0, k = 0; r < R; ++r) {
-      const int a = s_alph[r];
-      for (int row = 0; row < s_rows[r]; ++row, ++k) {
-        if (k % nwarps != warp) continue;
-        int* car = sm + s_car[r] + row * a;
-        int* cn = sm + s_cnt[r] + row * a;
-        for (int j = lane; j < a; j += 32) {
-          car[j] = (car[j] >> 1) + cn[j];
-          cn[j] = 0;
-        }
-        __syncwarp();
-        build_fences(car, sm + s_fen[r] + row * (a + 1), a);
-      }
-    }
-    __syncthreads();
+    plane_tables_rebuild(sm, s_fen, s_car, s_cnt, s_alph, s_rows, R);
   }
 
   if (t >= L) return;

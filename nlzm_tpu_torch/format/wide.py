@@ -5,9 +5,10 @@ A copy of the parts of nlzm_tpu/format/wide.py the port runs, which
 defines the format (the numpy plane encoder, the host reference decoder
 and the format description stay there; the port's plane encoder is
 ops/wide_encode_dev.py). tests/test_torch_host.py pins every piece here
-to the original: the plane table, the chunk schedule, the parsed
-payloads and priors of real containers, the command classification into
-plane arrays, the priors and the payload assembly.
+to the original: the plane table, the chunk schedule, the fence rule
+(build_cdf, which the NLZC encoder of research/ppm_tpu.py also runs), the
+parsed payloads and priors of real containers, the command
+classification into plane arrays, the priors and the payload assembly.
 
 Block payload layout (big-endian): per plane u32 sym_count, u32
 stream_bytes; u32 bits_bytes; per plane u16 x (NC - 1) chunk pair-count
@@ -18,6 +19,8 @@ decode order); the raw-bit plane (MSB-first).
 from dataclasses import dataclass
 
 import numpy as np
+
+from ..constants import CDF_SCALE_TOTAL
 
 CHUNK_STEPS = 8  # steady-state table rebuild cadence (in scan steps)
 WARMUP_CHUNKS = (2, 2, 4, 8)  # short early chunks: fast model warmup
@@ -65,6 +68,23 @@ N_PLANES = len(PLANES)
 HDR_BYTES = 8 * N_PLANES + 4
 
 TOK_LIT, TOK_DICT, TOK_REP = 0, 1, 2
+
+
+def build_cdf(counts: np.ndarray, nsym: int) -> np.ndarray:
+    """Deterministic fence table from symbol counts.
+
+    counts: [..., nsym] -> fences [..., max(nsym, 16) + 1] with
+    fence[0]=0 and fence[nsym..]=2^14; every symbol keeps freq >= 1 (the
+    last symbol absorbs rounding slack). Width floors at 17 for the
+    16-symbol consumers (research/ppm_tpu).
+    """
+    width = max(nsym, 16) + 1
+    tot = counts.sum(axis=-1, keepdims=True)
+    freq = 1 + (counts * (CDF_SCALE_TOTAL - nsym)) // (tot + 1)
+    fences = np.zeros(counts.shape[:-1] + (width,), np.int32)
+    np.cumsum(freq, axis=-1, out=fences[..., 1 : nsym + 1])
+    fences[..., nsym:] = CDF_SCALE_TOTAL
+    return fences
 
 
 def parse_priors(blob: bytes):

@@ -10,7 +10,11 @@ Counterpart of nlzm_tpu/ops/wide_decode.py, stage for stage:
 5. expand_ops.lz_expand_parallel: commands -> bytes.
 
 Steps 2-5 each have a CUDA kernel (csrc/) and a plain PyTorch version
-(the *_ref functions). The public function dispatches on the device of
+(the *_ref functions). Beside them, stage_plane and plane_scan are the
+unfused single-plane decode (csrc/plane_decode.cu) with multi-row,
+multi-read context tables: no container path runs it (wire v4's planes
+are single-row and decode fused); it reads what plane_encode writes for
+any plane spec. The public function dispatches on the device of
 its tensors: CPU tensors run the plain version, CUDA tensors launch the
 kernel. Both are exact integer code and agree with the JAX decoder array
 for array on valid streams; on corrupt streams every index is clamped, so
@@ -28,6 +32,7 @@ import torch
 
 from .. import _build
 from ..constants import CDF_SCALE_BITS, CDF_SCALE_TOTAL
+from ..format import wide
 from ..format.wide import (
     N_PLANES,
     PLANES,
@@ -247,6 +252,183 @@ def plane_scan_fused(seeds, wins, n_syms, steps: int, priors=None):
 
 
 plane_scan_fused.launches = 0
+
+
+# ---------------------------------------------------- the unfused plane scan
+
+
+def stage_plane(stream_list, offset_list, plane_idx: int, steps: int, *, device="cuda"):
+    """One plane's inputs for plane_scan, on `device`: (seeds [B, L] int32
+    holding the u32 lane states, wins [NC, B, WH] int32).
+
+    stream_list: per block the plane's stream bytes (L u32le lane seeds,
+    then the renorm pairs as u16be); offset_list: per block its chunk
+    byte offsets (format/wide.py parse_payload, plane_streams). wins
+    holds each chunk's pairs as big-endian values, dense and zero-padded
+    to WH (the largest pair count of any (block, chunk), rounded up to 8,
+    at least 8); a block's offsets pad to the chunk count of `steps` with
+    its stream end. The values of nlzm_tpu's stage_plane, whose wins are
+    u16.
+    """
+    L = wide.PLANES[plane_idx].lanes
+    B = len(stream_list)
+    NC = len(chunk_schedule(steps))
+    seeds = np.frombuffer(b"".join(s[: 4 * L] for s in stream_list), "<u4").reshape(B, L)
+    hw_lens = np.asarray([(len(s) - 4 * L) // 2 for s in stream_list], np.int64)
+    hw_flat = np.frombuffer(b"".join(s[4 * L :] for s in stream_list), ">u2")
+    hw_base = np.zeros(B + 1, np.int64)
+    np.cumsum(hw_lens, out=hw_base[1:])
+
+    offs = np.zeros((B, NC + 1), np.int64)
+    for b, o in enumerate(offset_list):
+        offs[b, : len(o)] = o
+        offs[b, len(o) :] = hw_lens[b] * 2
+    pair_counts = (offs[:, 1:] - offs[:, :-1]) // 2  # [B, NC]
+    WH = max(8, int(-(-pair_counts.max() // 8)) * 8)
+    wins = np.zeros((NC, B, WH), np.int32)
+    if len(hw_flat):
+        # wins[c, b, k] = hw[b][offs[b, c] / 2 + k] for k < pair_counts[b, c]
+        k = np.arange(WH, dtype=np.int64)
+        idx = hw_base[:-1][:, None, None] + offs[:, :-1, None] // 2 + k  # [B, NC, WH]
+        mask = k < pair_counts[:, :, None]
+        wins = np.where(mask, np.take(hw_flat, np.minimum(idx, len(hw_flat) - 1)), 0)
+        wins = np.ascontiguousarray(wins.transpose(1, 0, 2), np.int32)
+    dev = torch.device(device)
+    return (torch.as_tensor(seeds.astype(np.uint32).view(np.int32), device=dev),
+            torch.as_tensor(wins, device=dev))
+
+
+def _wrap32(v):
+    """int64 values as the int32 values they wrap to."""
+    return ((v + (1 << 31)) & _U32) - (1 << 31)
+
+
+def plane_scan_ref(seeds, wins, n_sym, ctx, plane_idx: int, steps: int, prior=None):
+    """Plain version of plane_scan: one loop iteration per step and read,
+    lanes as tensors, u32 lane states carried as int64 masked to 32 bits."""
+    spec = wide.PLANES[plane_idx]
+    L, R = spec.lanes, spec.reads
+    B = seeds.shape[0]
+    dev = seeds.device
+    x = seeds.long() & _U32
+    nsym = n_sym.long()[:, None]
+    lane = torch.arange(L, device=dev)
+    ctx = ctx.long().reshape(B, steps, L)
+    carries, fences = [], []
+    for r in range(R):
+        nr, a = spec.rows[r], spec.alphabets[r]
+        if prior is None:
+            carries.append(torch.zeros(B, nr, a, dtype=torch.long, device=dev))
+            fences.append(_uniform_fences(1, a, dev).reshape(1, 1, a + 1).expand(B, nr, a + 1))
+        else:
+            carries.append(prior[r].long().reshape(1, nr, a).expand(B, nr, a).clone())
+            fences.append(_build_cdf(carries[r], a))
+    outs = [torch.zeros(B, steps, L, dtype=torch.int32, device=dev) for _ in range(R)]
+    s = 0
+    for c, clen in enumerate(chunk_schedule(steps)):
+        win = wins[c].long()
+        counts = [torch.zeros(B, spec.rows[r] * spec.alphabets[r], dtype=torch.long, device=dev)
+                  for r in range(R)]
+        rel = torch.zeros(B, 1, dtype=torch.long, device=dev)  # the window cursor, per chunk
+        for _ in range(clen):
+            active = (s * L + lane)[None, :] < nsym
+            row0 = ctx[:, s]
+            y_prev = None
+            for r in range(R):
+                nr, a = spec.rows[r], spec.alphabets[r]
+                if r == 0:
+                    row = row0
+                elif spec.name == "dst":
+                    row = _wrap32(row0 * 8 + y_prev)
+                else:
+                    row = y_prev
+                # a single-row read ignores the row; a row outside [0, rows)
+                # reads as an all-zero table row (JAX's one-hot select)
+                ok = torch.ones_like(active) if nr == 1 else (row >= 0) & (row < nr)
+                rc = torch.zeros_like(row) if nr == 1 else row.clamp(0, nr - 1)
+                tbl = fences[r].gather(1, rc[:, :, None].expand(B, L, a + 1))
+                tbl = torch.where(ok[:, :, None], tbl, 0)  # [B, L, a + 1]
+                f = x & 0x3FFF
+                y = (f[:, :, None] >= tbl[:, :, 1:]).sum(-1)  # a on a zero row
+                start = tbl.gather(2, y[:, :, None])[:, :, 0]
+                end = tbl.gather(2, (y + 1).clamp(max=a)[:, :, None])[:, :, 0]
+                freq = torch.where(y < a, end - start, 0)
+                x2 = (freq * (x >> CDF_SCALE_BITS) + (f - start)) & _U32
+                ren = active & (x2 < (1 << 16))
+                rr = ren.long()
+                rank = rr.cumsum(1) - rr
+                pair = win.gather(1, (rel + rank).clamp(0, win.shape[1] - 1))
+                x = torch.where(active, torch.where(ren, ((x2 << 16) | pair) & _U32, x2), x)
+                rel = rel + rr.sum(1, keepdim=True)
+                y = torch.where(active, y, 0)
+                hit = active & ok & (y < a)  # out-of-range rows and symbols count nothing
+                counts[r].scatter_add_(1, rc * a + y.clamp(max=a - 1), hit.long())
+                outs[r][:, s] = y.to(torch.int32)
+                y_prev = y
+            s += 1
+        for r in range(R):
+            nr, a = spec.rows[r], spec.alphabets[r]
+            carries[r] = (carries[r] >> 1) + counts[r].reshape(B, nr, a)
+            fences[r] = _build_cdf(carries[r], a)
+    return tuple(o.reshape(B, steps * L) for o in outs)
+
+
+PLANE_MAX_READS = 8  # csrc/plane_decode.cu's descriptor slots
+PLANE_MAX_SMEM = 225 << 10  # dynamic shared memory a CTA may take, below the H100's 227 KiB
+
+
+def plane_scan(seeds, wins, n_sym, ctx, plane_idx: int, steps: int, prior=None):
+    """Decode one plane for all blocks.
+
+    The plane's spec is wide.PLANES[plane_idx], read at call time. seeds
+    [B, L] int32 (u32 bits) and wins [NC, B, WH] int32 from stage_plane,
+    NC = len(chunk_schedule(steps)); n_sym [B] int32 symbol counts; ctx
+    [B, steps * L] int32 context rows of the first read (reads after it
+    key their row on the previous read's symbol: row0 * 8 + y for a plane
+    named "dst", else y; single-row reads ignore the row); prior: None,
+    or one [rows, alph] int32 tensor of warm-start counts per read.
+    Returns per read a [B, steps * L] int32 symbol array; a lane past
+    n_sym emits 0, a row outside [0, rows) decodes as alph from an
+    all-zero table row.
+    """
+    spec = wide.PLANES[plane_idx]
+    L, R = spec.lanes, spec.reads
+    if prior is not None and (len(prior) != R or any(p is None for p in prior)):
+        raise ValueError(f"plane_scan: prior is None or one tensor for each of the {R} reads")
+    if seeds.device.type == "cpu":
+        return plane_scan_ref(seeds, wins, n_sym, ctx, plane_idx, steps, prior)
+    prior = (None,) * R if prior is None else tuple(prior)
+    _build.check_cuda("plane_scan", seeds, wins, n_sym, ctx, *prior)
+    B = seeds.shape[0]
+    NC = len(chunk_schedule(steps))
+    if (seeds.dtype != torch.int32 or seeds.shape != (B, L) or wins.dtype != torch.int32
+            or wins.dim() != 3 or wins.shape[:2] != (NC, B) or wins.shape[2] < 1
+            or n_sym.dtype != torch.int32 or n_sym.shape != (B,)
+            or ctx.dtype != torch.int32 or ctx.shape != (B, steps * L)
+            or any(p is not None and (p.dtype != torch.int32
+                                      or p.numel() != spec.rows[r] * spec.alphabets[r])
+                   for r, p in enumerate(prior))):
+        raise ValueError("plane_scan: seeds [B,L] int32, wins [NC,B,WH] int32, n_sym [B] int32, "
+                         "ctx [B,steps*L] int32, prior int32 [rows,alph] per read")
+    smem = 4 * sum(spec.rows[r] * (3 * spec.alphabets[r] + 1) for r in range(R))
+    if R > PLANE_MAX_READS or L > 1024 or smem > PLANE_MAX_SMEM:
+        raise ValueError(f"plane_scan: {R} reads, {L} lanes and {smem} bytes of tables exceed "
+                         f"the kernel's {PLANE_MAX_READS} reads, 1024 lanes, {PLANE_MAX_SMEM} bytes")
+    dev = seeds.device
+    outs = [torch.empty(B, steps * L, dtype=torch.int32, device=dev) for _ in range(R)]
+    desc = torch.tensor(
+        [[0 if p is None else p.data_ptr(), o.data_ptr(), spec.alphabets[r], spec.rows[r]]
+         for r, (p, o) in enumerate(zip(prior, outs))],
+        dtype=torch.int64, device=dev)
+    fn = _build.entry("plane_decode", "nlzm_plane_decode", 6, 8)
+    _build.launch(fn, [desc.data_ptr(), seeds.data_ptr(), wins.data_ptr(), n_sym.data_ptr(),
+                       ctx.data_ptr(), _schedule_tensor(steps, dev).data_ptr()],
+                  [B, L, R, steps, NC, wins.shape[2], int(spec.name == "dst"), smem], dev)
+    plane_scan.launches += 1
+    return tuple(outs)
+
+
+plane_scan.launches = 0
 
 
 # -------------------------------------------------------------- assembly

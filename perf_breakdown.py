@@ -10,9 +10,11 @@ config, stage by stage through the functions decode_container runs; and
 encodes it with the wide device encode (32 KiB blocks) and, on 8 MiB
 (chip_smoke.V1_ENC_BYTES), the v1 device encode (8 KiB blocks), each with
 the greedy and the optimal parse, stage by stage through the functions
-encode_container(engine="device") runs: host clock around each stage,
-with a torch.cuda.synchronize() at every boundary, min and median over
-REPS runs. Then one decode of each, and one encode_container(engine=
+encode_container(engine="device") runs; and decodes the NLZC research
+container of 4 MiB at 16 KiB blocks (chip_smoke.NLZC) stage by stage
+through the functions ppm_tpu.decompress runs: host clock around each
+stage, with a torch.cuda.synchronize() at every boundary, min and median
+over REPS runs. Then one decode of each, and one encode_container(engine=
 "device") of each profile, under torch.profiler: device time by kernel,
 and the device's busy share of the wall time. Prints one JSON line per
 measurement and the card line of nvidia-smi. Needs a CUDA device;
@@ -35,6 +37,7 @@ from nlzm_tpu_torch.ops import wide_decode as wd
 from nlzm_tpu_torch.ops import wide_encode_dev as we
 from nlzm_tpu_torch.ops.expand_ops import scatter_blocks
 from nlzm_tpu_torch.parallel import blocks
+from nlzm_tpu_torch.research import ppm_tpu
 from nlzm_tpu_torch.utils.crc32 import crc32
 
 REPS = 6
@@ -195,6 +198,25 @@ def v1_encode_stages(data: bytes, dev, cfg: dict) -> dict:
     return c.ms
 
 
+def nlzc_stages(blob: bytes, data: bytes, dev) -> dict:
+    """The NLZC decode, stage by stage: ppm_tpu.decompress's parse, prior
+    decode, staging, kernel and reassembly."""
+    c = Clock()
+    block_size, total_len, prior_bytes, streams = ppm_tpu.parse_container(blob)
+    c.lap("parse_container")
+    prior = ppm_tpu.decode_prior(prior_bytes, dev)
+    c.lap("decode_prior (huff0 device decode: tables, upload, huff_scan, copy back)")
+    args, layout = ppm_tpu.stage_streams(streams, block_size, total_len, prior, dev)
+    c.lap("stage_streams (host staging + upload)")
+    out = ppm_tpu._decode_blocks(*args)
+    c.lap("_decode_blocks (ppm_decode)")
+    plain = ppm_tpu.reassemble(out, layout)
+    c.lap("reassemble (copy back + segment order)")
+    if plain != data:
+        raise AssertionError("NLZC decoded bytes differ from the input")
+    return c.ms
+
+
 def check(plain: bytes, data: bytes, info) -> None:
     """The decode's CRC verification (blocks._verified), then the bytes."""
     if blocks._verified(plain, info) != data:
@@ -280,6 +302,10 @@ def main() -> int:
             lambda cfg=cfg: v1_encode_stages(v1_data, dev, cfg),
             lambda cfg=cfg: blocks.encode_container(v1_data, device=dev, engine="device", **cfg),
             len(v1_data))
+    ndata = corpus[: chip_smoke.NLZC["bytes"]]
+    nblob = ppm_tpu.compress(ndata, chip_smoke.NLZC["block_size"])
+    runs_of["nlzc_decode"] = (lambda: nlzc_stages(nblob, ndata, dev),
+                              lambda: ppm_tpu.decompress(nblob, device=dev), len(ndata))
     for name, (stages_fn, whole, nbytes) in runs_of.items():
         stages_fn()  # warm: kernel builds, allocator
         runs = [stages_fn() for _ in range(REPS)]

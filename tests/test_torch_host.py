@@ -4,7 +4,9 @@ wide format tables and chunk schedule, the constants, CRC32,
 chip_smoke.py's copy of the bench corpus generator, and the host side of
 the device wide encode (native parse, lift, rep classification and plane
 encode bindings; plane batching, priors, payload assembly, bit packing,
-slot and minimum-length helpers)."""
+slot and minimum-length helpers), the fence rule build_cdf, and the host
+sides of the research codecs (huff0's tables and both of its containers;
+NLZC's constants, schedule, layout, prior and block encode)."""
 
 import dataclasses
 
@@ -17,11 +19,15 @@ from nlzm_tpu import constants as jconst
 from nlzm_tpu import native as jnative
 from nlzm_tpu.format import wide as jwide
 from nlzm_tpu.parallel import blocks as jblocks
+from nlzm_tpu.research import huff0 as jhuff
+from nlzm_tpu.research import ppm_tpu as jppm
 from nlzm_tpu.utils.crc32 import crc32 as jcrc32
 from nlzm_tpu_torch import constants as tconst
 from nlzm_tpu_torch import native as tnative
 from nlzm_tpu_torch.format import wide as twide
 from nlzm_tpu_torch.parallel import blocks as tblocks
+from nlzm_tpu_torch.research import huff0 as thuff
+from nlzm_tpu_torch.research import ppm_tpu as tppm
 from nlzm_tpu_torch.utils.crc32 import crc32 as tcrc32
 
 # case -> (input bytes, encode_container keywords)
@@ -227,3 +233,90 @@ def test_pack_bits():
         widths = rng.integers(0, 17, n).astype(np.int32)
         values = (rng.integers(0, 1 << 16, n) & ((1 << widths) - 1)).astype(np.int32)
         assert twide._pack_bits(widths, values) == jwide._pack_bits(widths, values)
+
+
+@pytest.mark.parametrize("nsym", [1, 3, 4, 8, 16, 17, 64, 256])
+def test_build_cdf(nsym):
+    rng = np.random.default_rng(nsym)
+    for counts in (np.zeros((2, nsym), np.int64), rng.integers(0, 3000, (3, 5, nsym)),
+                   rng.integers(0, 1 << 16, (nsym,))):
+        got, want = twide.build_cdf(counts, nsym), jwide.build_cdf(counts, nsym)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+
+
+# ---- the research codecs' host sides
+
+
+def _huff_count_sets(corpus_samples):
+    skew = np.ones(256, np.int64)
+    skew[0] = 1 << 40
+    yield skew
+    yield np.zeros(256, np.int64)
+    yield np.arange(256)
+    for name in ("text", "random", "zeros", "tiny"):
+        yield np.bincount(np.frombuffer(corpus_samples[name], np.uint8), minlength=256)
+
+
+def test_huff0_tables(corpus_samples):
+    assert (thuff.CODE_LEN_LIMIT, thuff.MAGIC, thuff._HDR.format) == (
+        jhuff.CODE_LEN_LIMIT, jhuff.MAGIC, jhuff._HDR.format)
+    for counts in _huff_count_sets(corpus_samples):
+        lengths = jhuff.code_lengths(counts)
+        np.testing.assert_array_equal(thuff.code_lengths(counts), lengths)
+        np.testing.assert_array_equal(thuff._huffman_depths(np.maximum(counts, 1)),
+                                      jhuff._huffman_depths(np.maximum(counts, 1)))
+        for fn in ("canonical_codes", "left_tables"):
+            got, want = getattr(thuff, fn)(lengths), getattr(jhuff, fn)(lengths)
+            for a, b in zip(got, want, strict=True):
+                assert a.dtype == b.dtype
+                np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("block_size", [1000, 4096, 32768])
+def test_huff0_containers(corpus_samples, corpus_text, block_size):
+    for data in (corpus_text(70_000), corpus_samples["random"], corpus_samples["tiny"], b""):
+        c = thuff.encode(data, block_size)
+        assert c == jhuff.encode(data, block_size)
+        got, want = thuff._parse(c), jhuff._parse(c)
+        assert got[:3] + got[4:] == want[:3] + want[4:]
+        assert all(np.array_equal(a, b) for a, b in zip(got[3], want[3], strict=True))
+        assert thuff.decode(c, engine="host") == data
+    text = corpus_text(50_000)
+    a = thuff.adaptive_encode(text)
+    assert a == jhuff.adaptive_encode(text)
+    assert thuff.adaptive_decode(a) == text
+
+
+def test_nlzc_constants_and_schedule():
+    for name in ("CHUNK_STEPS", "WARMUP_CHUNKS", "MAGIC", "VERSION", "LANES", "DEFAULT_BLOCK",
+                 "ROWS", "GROUP", "PRIOR_W", "PRIOR_QUANT", "BLEND", "PRIOR_MIN"):
+        assert getattr(tppm, name) == getattr(jppm, name), name
+    for n in range(1, 3000):
+        assert tppm.chunk_schedule(n) == jppm.chunk_schedule(n)
+        assert tppm.padded_steps(n, 1) == jppm.padded_steps(n, 1)
+    for nb in (0, 1, 31, 32, 33, 1000, 32768):
+        (ts, tl), (js, jl) = tppm._seg_lens(nb), jppm._seg_lens(nb)
+        assert ts == js
+        np.testing.assert_array_equal(tl, jl)
+    rng = np.random.default_rng(2)
+    prev, prev2, hi = (rng.integers(0, 256, 50), rng.integers(0, 256, 50), rng.integers(0, 16, 50))
+    for a, b in zip(tppm._rows_of(prev, prev2, hi), jppm._rows_of(prev, prev2, hi), strict=True):
+        np.testing.assert_array_equal(a, b)
+    carry = rng.integers(0, 1100, (2, tppm.ROWS, 16))
+    prior = rng.integers(0, 65, (tppm.ROWS, 16))
+    np.testing.assert_array_equal(tppm._effective_counts(carry, prior),
+                                  jppm._effective_counts(carry, prior))
+
+
+def test_nlzc_layout_prior_and_encode(corpus_text, corpus_samples):
+    blocks = [corpus_text(9000)[i : i + 4096] for i in (0, 4096, 8192)] + [corpus_samples["tiny"]]
+    got, want = tppm._layout(blocks), jppm._layout(blocks)
+    assert got[4] == want[4]
+    for a, b in zip(got[:4], want[:4], strict=True):
+        np.testing.assert_array_equal(a, b)
+    prior = jppm.build_prior(*want[:4])
+    np.testing.assert_array_equal(tppm.build_prior(*got[:4]), prior)
+    assert tppm.encode_blocks(blocks, prior) == jppm.encode_blocks(blocks, prior)
+    data = corpus_text(5000)
+    assert tppm.compress(data, 1024) == jppm.compress(data, 1024)
