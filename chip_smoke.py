@@ -27,6 +27,11 @@ card and fails (nonzero exit, no result line) on anything wrong:
 7. kernels_v1: the bench's v1 config (8 MB, 32 KiB blocks, optimal
    parse): fsm_decode against fsm_decode_v2_ref and lz_expand on the v1
    command arrays against its plain version, exact; CUDA-event times;
+   fsm_decode also on hostile_streams of that bucket (two seeds, 1024
+   steps) against its plain version, exact; then fsm_decode timed, with
+   its steps and ns a step of the longest block's chain, on the bench
+   bucket, on one 2 MiB bucket of the file decode and on the CLI
+   default's buckets (9's container);
 8. e2e_v1_bench: the v1 decode of that container, as in 4;
 9. e2e_v1_cli: the CLI's block default (128 KiB blocks, v1, optimal) on
    8 MB, end to end only;
@@ -59,6 +64,8 @@ card and fails (nonzero exit, no result line) on anything wrong:
     on its fields, each against its plain version, exact, with CUDA-event
     times; rans_backward and bits_forward also at a 101-byte cap, where
     writes are dropped; all three on fuzz_commands (the clamps);
+    emit_model also timed on one 2 MiB bucket of the file encode (256
+    blocks), with ns a step;
 17. e2e_enc_v1: encode_container(profile="v1", parser="greedy",
     engine="device") of the 8 MiB at 8 KiB blocks; every payload must
     decode through the host decoder native.decode_block and the
@@ -72,7 +79,9 @@ card and fails (nonzero exit, no result line) on anything wrong:
     choices, measure_costs on emit_model's spans, each against its plain
     version, exact, with CUDA-event times; untimed, dp_cover's
     global-scratch walk at 128 KiB blocks on 1 MiB, and all three on
-    fuzz_opt (wraps and clamps);
+    fuzz_opt (wraps and clamps); emit_model at the wide optimal encode's
+    shape (8 MB at 32 KiB blocks, 245 blocks, T = 32768) against its
+    plain version, exact, and timed;
 20. e2e_enc_v1_opt: encode_container(parser="optimal", engine="device")
     of the 8 MiB at 8 KiB blocks, checked as 17; MB/s, the ratio and 17's
     greedy ratio;
@@ -133,6 +142,8 @@ STREAM_BUCKET = 2 << 20
 REPS = 5  # end-to-end timings: best of REPS
 KERNEL_REPS = 20  # kernel timings: mean of KERNEL_REPS back-to-back launches
 FSM_REPS = 5  # fsm_decode: mean of FSM_REPS launches (each runs ~10^4 steps)
+HOSTILE_SEEDS = (0, 1)  # hostile_streams of the v1 bench bucket
+HOSTILE_STEPS = 1024  # their plain decode takes 4-8 ms a step on the card
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 # H100 SXM peak of int32 operations, the type of every kernel here: 132 SMs
 # x 64 INT32 lanes x 2 operations (IADD3, LOP3 and IMAD fuse two) x 1.98
@@ -231,6 +242,32 @@ def fuzz_commands(seed: int, T: int = 77, B: int = 64):
                       np.where(rng.random((T, B)) < 0.05, rng.integers(-9, 1, (T, B)), dist))
     op_rep = np.where(rng.random((T, B)) < 0.6, -1, rng.integers(0, 8, (T, B)))
     return tuple(a.astype(np.int32) for a in (op_len, op_val, op_rep))
+
+
+def hostile_streams(arr, seed: int):
+    """A valid [B, S] uint8 v1 stream matrix (pack_streams) made hostile
+    from a seed, row b by kind b % 5: random bytes; the stream cut short
+    (zeros from a point inside its first frame); the first frame's
+    nb_bytes sending rans_base below 0, past the row, and to within 40
+    bytes of the i32 limit, where the cursors wrap. For fsm_decode's clamps
+    and frozen terminator pairs; tests/test_torch_decode_v2.py holds the
+    plain version to JAX on them."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = arr.copy()
+    B, S = out.shape
+    for b in range(B):
+        kind = b % 5
+        if kind == 0:
+            out[b] = rng.integers(0, 256, S)
+        elif kind == 1:
+            out[b, int(rng.integers(12, max(13, min(S, 4096)))):] = 0
+        else:
+            nb = (-int(rng.integers(1, 5000)), S + int(rng.integers(0, 10000)),
+                  2**31 - 1 - int(rng.integers(0, 40)))[kind - 2]
+            out[b, 4:8] = np.frombuffer((nb & 0xFFFFFFFF).to_bytes(4, "big"), np.uint8)
+    return out
 
 
 def fuzz_opt(seed: int, B: int = 48, N: int = 700, C: int = 3):
@@ -484,7 +521,11 @@ def fsm_work(streams, op_len, op_val, reads: int):
 
 def check_kernels_v1(tally: Tally, buckets, info):
     """fsm_decode and lz_expand against their plain versions on the v1
-    buckets (the plain fsm timed once, its comparison call the warm-up)."""
+    buckets (the plain fsm timed once, its comparison call the warm-up);
+    then fsm_decode on hostile streams made from the first bucket
+    (untimed)."""
+    import torch
+
     from nlzm_tpu_torch.ops import decode_v2 as dv
     from nlzm_tpu_torch.ops import expand_ops as xo
 
@@ -500,6 +541,27 @@ def check_kernels_v1(tally: Tally, buckets, info):
         tally.hold("lz_expand_v1", lambda: xo.lz_expand_parallel(*ex),
                    lambda: xo.lz_expand_parallel_ref(*ex), reps_plain=3,
                    work=expand_work(op_len, block_size, None, None))
+    arr = buckets[0][0].cpu().numpy()
+    for seed in HOSTILE_SEEDS:
+        bad = torch.as_tensor(hostile_streams(arr, seed), device=buckets[0][0].device)
+        tally.hold("fsm_decode", lambda: dv.fsm_decode_v2(bad, HOSTILE_STEPS),
+                   lambda: dv.fsm_decode_v2_ref(bad, HOSTILE_STEPS), timed=False)
+    return {"blocks": arr.shape[0], "steps": HOSTILE_STEPS, "seeds": list(HOSTILE_SEEDS)}
+
+
+def fsm_timing(buckets, num_cmds) -> list:
+    """fsm_decode's CUDA-event mean on each (streams, num_steps, idx)
+    bucket, with its steps, the serial chain of its longest block (its
+    commands and the terminator step) and ns a step of that chain."""
+    from nlzm_tpu_torch.ops import decode_v2 as dv
+
+    out = []
+    for streams, num_steps, idx in buckets:
+        ms = timed_mean(lambda: dv.fsm_decode_v2(streams, num_steps), FSM_REPS)
+        chain = max(num_cmds[b] for b in idx) + 1
+        out.append({"blocks": len(idx), "num_steps": num_steps, "chain": chain, "ms": ms,
+                    "ns_per_step": ms * 1e6 / chain})
+    return out
 
 
 def counters():
@@ -639,18 +701,32 @@ def run_v1(tally: Tally, data: bytes, device, card: str):
     """Phases 7-11; returns (the bench v1 container, main-path launches)."""
     from nlzm_tpu_torch.ops.decode_v2 import fsm_decode_v2
     from nlzm_tpu_torch.parallel.blocks import (
-        decode_v1_staged, encode_container, parse_container, stage_v1_buckets)
+        block_payloads, decode_v1_staged, encode_container, parse_container, stage_v1_buckets,
+        stage_v1_payloads)
 
     t0 = time.perf_counter()
     container = encode_container(data, **V1_BENCH)
     encode_s = time.perf_counter() - t0
     info = parse_container(container)
+    cli_data = data[:V1_CLI_BYTES]
+    cli_c = encode_container(cli_data, **V1_CLI)
+    cli_info = parse_container(cli_c)
     buckets = stage_v1_buckets(container, info, device=device)
-    check_kernels_v1(tally, buckets, info)
+    hostile = check_kernels_v1(tally, buckets, info)
+    # fsm_decode at the bench buckets, one 2 MiB bucket of the file decode
+    # and the CLI default's buckets
+    nb = STREAM_BUCKET // info.block_size
+    file_bucket = stage_v1_payloads(block_payloads(container, info)[:nb], info.num_cmds[:nb],
+                                    device=device)
+    shapes = {"bench": fsm_timing(buckets, info.num_cmds),
+              "file_bucket": fsm_timing(file_bucket, info.num_cmds),
+              "cli": fsm_timing(stage_v1_buckets(cli_c, cli_info, device=device),
+                                cli_info.num_cmds)}
     emit({"phase": "kernels_v1", "ok": True, "encode_s": encode_s,
           "buckets": [len(idx) for _, _, idx in buckets],
           "num_steps": [s for _, s, _ in buckets], "max_cmds": max(info.num_cmds),
-          "kernels": tally.summary(("fsm_decode", "lz_expand_v1")),
+          "kernels": tally.summary(("fsm_decode", "lz_expand_v1")), "hostile": hostile,
+          "fsm_decode_shapes": shapes,
           "timing": f"CUDA events; fsm_decode: mean of {FSM_REPS} calls, plain once after "
                     f"its comparison call; lz_expand: mean of {KERNEL_REPS}, plain of 3",
           "card": card})
@@ -663,9 +739,7 @@ def run_v1(tally: Tally, data: bytes, device, card: str):
                            staged_run)
     del buckets
 
-    cli_data = data[:V1_CLI_BYTES]
-    decode_path("e2e_v1_cli", cli_data, encode_container(cli_data, **V1_CLI), card, device,
-                V1_KERNELS)
+    decode_path("e2e_v1_cli", cli_data, cli_c, card, device, V1_KERNELS)
 
     big = data[:V1_BIG_BYTES]
     big_c = encode_container(big, **V1_BIG)
@@ -895,6 +969,12 @@ def check_kernels_v1enc(tally: Tally, data: bytes, device):
                lambda: eo.rans_backward_ref(spans, cap), timed=False)
     tally.hold("bits_forward", lambda: eo.bits_forward(fields, cap),
                lambda: eo.bits_forward_ref(fields, cap), timed=False)
+    # one 2 MiB bucket of the file encode: its first 256 blocks
+    nb = STREAM_BUCKET // N
+    fcmds = tuple(c[:, :nb].contiguous() for c in cmds)
+    fb_ms = timed_mean(lambda: eo.emit_model(*fcmds), KERNEL_REPS)
+    file_bucket = {"blocks": nb, "steps": T, "ms": fb_ms, "ns_per_step": fb_ms * 1e6 / T,
+                   "max_cmds": int((fcmds[0] >= 0).sum(0).max())}
     # the clamps, on commands no parse gives (untimed)
     fz = tuple(torch.as_tensor(a, device=device) for a in fuzz_commands(5))
     fspans, ffields, _ = tally.hold("emit_model", lambda: eo.emit_model(*fz),
@@ -905,7 +985,10 @@ def check_kernels_v1enc(tally: Tally, data: bytes, device):
         tally.hold("bits_forward", lambda: eo.bits_forward(ffields, fcap),
                    lambda: eo.bits_forward_ref(ffields, fcap), timed=False)
     return {"blocks": B, "steps": T, "commands": n_cmd, "spans": n_span, "rans_cap": rans_cap,
-            "bits_cap": bits_cap, "small_cap": cap}
+            "bits_cap": bits_cap, "small_cap": cap,
+            "max_cmds": int((op_len >= 0).sum(0).max()),
+            "emit_model_ns_per_step": tally.k["emit_model"]["ms"] * 1e6 / T,
+            "emit_model_file_bucket": file_bucket}
 
 
 def run_v1_encode(tally: Tally, data: bytes, device, card: str, ratios: dict):
@@ -1030,6 +1113,24 @@ def check_kernels_opt(tally: Tally, data: bytes, device):
                timed=False)
     del bd, bm, bcov
 
+    # emit_model at the wide optimal encode's shape (T = 32768, 32 KiB
+    # blocks, the commands of its last round): held, then timed
+    WN = WIDE_OPT["block_size"]
+    warr, wnv = eo._blocks_arrays(data[:SHIP_BYTES], WN)
+    wl, wv = eo._device_parse(torch.as_tensor(warr, device=device),
+                              torch.as_tensor(wnv, device=device), (1 << ENC_HIST_BITS) - 1,
+                              (WN + 255) // 256 * 256, "optimal")
+    wcmds = (wl, wv, eo.repify(wl, wv))
+    t0 = time.perf_counter()
+    tally.hold("emit_model", lambda: eo.emit_model(*wcmds), lambda: eo.emit_model_ref(*wcmds),
+               timed=False)
+    check_s = time.perf_counter() - t0
+    WT = wcmds[0].shape[0]
+    ms = timed_mean(lambda: eo.emit_model(*wcmds), KERNEL_REPS)
+    wide = dict(blocks=wcmds[0].shape[1], steps=WT, check_s=check_s, ms=ms,
+                ns_per_step=ms * 1e6 / WT, max_cmds=int((wl >= 0).sum(0).max()))
+    del wl, wv, wcmds
+
     fz = {k: (tuple(torch.as_tensor(a, device=device) for a in v) if k == "commands"
               else torch.as_tensor(v, device=device)) for k, v in fuzz_opt(7).items()}
     for costs_f in (None, fz["costs"]):
@@ -1043,7 +1144,7 @@ def check_kernels_opt(tally: Tally, data: bytes, device):
     tally.hold("measure_costs", lambda: eo.measure_costs(*fz["commands"]),
                lambda: eo.measure_costs_ref(*fz["commands"]), timed=False)
     return {"blocks": B, "steps": T, "commands_round1": n_cmd,
-            "big_cover": dict(blocks=bt.shape[0], **BIG_COVER)}
+            "big_cover": dict(blocks=bt.shape[0], **BIG_COVER), "emit_model_wide": wide}
 
 
 def exact_launches(label: str, launches: dict, per_run: dict, runs: int = 1) -> None:

@@ -2,7 +2,8 @@
 the greedy commands of the text, repetitive, random and zeros samples at
 4 KiB blocks (with their rep slots and with none), on rep-heavy sensor
 records, on a hand-made set that reaches every read, field and clamp,
-and on chip_smoke.py's seeded fuzz set; rans_backward and bits_forward
+and on chip_smoke.py's seeded fuzz set, and its spans replayed row by
+row (what the kernel's design rests on); rans_backward and bits_forward
 on those outputs, also at caps small enough to drop writes;
 encode_blocks_device against encode_blocks_tpu;
 encode_container(profile="v1", engine="device") and
@@ -20,6 +21,7 @@ from nlzm_tpu.ops import encode_ops as jenc
 from nlzm_tpu.parallel import blocks as jblocks
 from nlzm_tpu.parallel import stream as jstream
 from nlzm_tpu_torch import native as tnative
+from nlzm_tpu_torch.ops import cdf_ops as tcdf
 from nlzm_tpu_torch.ops import encode_ops as tenc
 from nlzm_tpu_torch.parallel import blocks as tblocks
 from nlzm_tpu_torch.parallel import stream as tstream
@@ -140,6 +142,42 @@ def test_hand_made_reaches_every_read(jax_emitted):
     spans, (va, nb_a, vb, nb_b), _ = jax_emitted["hand_made"]
     assert (spans != 0).any(axis=(0, 1)).all()
     assert nb_a.max() > 2 and (nb_a == 2).any() and nb_b.max() == 4
+
+
+def _spans_row_by_row(op_len, op_val, op_rep):
+    """emit_model's spans with each bank row's chain replayed apart from
+    the others: a row changes only on a read of it, so its reads in step
+    order (from the reads each command codes, ops/encode_ops.py
+    _emit_commands) give its spans, whatever the other rows do. A numpy
+    loop per block and row."""
+    desc = tenc._emit_commands(*(_t(a) for a in (op_len, op_val, op_rep)))[0].numpy()
+    rows = desc & 127
+    ys = ((desc >> 7) & 31) - 2
+    ns = 4 << (desc >> 12)
+    bank0 = tcdf.initial_bank()
+    full = 1 << 14
+    spans = np.zeros(desc.shape, np.int64)
+    for b in range(desc.shape[1]):
+        for r in np.unique(rows[:, b]):
+            if r == tcdf.NUM_CTX:  # the JAX zero row: span 0, no state
+                continue
+            ts, ss = np.nonzero(rows[:, b] == r)  # in step order
+            assert len(set(ts.tolist())) == len(ts)  # a step reads a row at most once
+            f = [int(v) for v in bank0[r]]
+            for t, s in zip(ts.tolist(), ss.tolist()):
+                y, n = int(ys[t, b, s]), int(ns[t, b, s])
+                start = f[y] if 0 <= y < 17 else 0
+                nxt = f[y + 1] if 0 <= y + 1 < 17 else 0
+                spans[t, b, s] = ((nxt - start) << 16 | start) & 0xFFFFFFFF
+                yc = min(max(y, 0), n - 1)
+                f = [v + (((full if j >= n else (j if j <= yc else full + j + 127 - n)) - v) >> 7)
+                     for j, v in enumerate(f)]
+    return spans.astype(np.uint32).view(np.int32)
+
+
+@pytest.mark.parametrize("name", SAMPLES + ("sensor", "hand_made", "fuzz"))
+def test_emit_model_rows_replay_apart(commands, jax_emitted, name):
+    np.testing.assert_array_equal(_spans_row_by_row(*commands[name]), jax_emitted[name][0])
 
 
 RANS_CAPS = {"frame": lambda N: ((3 * N + 64 + 255) // 256) * 256, "17": lambda N: 17,
