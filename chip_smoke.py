@@ -77,10 +77,14 @@ card and fails (nonzero exit, no result line) on anything wrong:
     shapes (3 candidates): dp_parse with the default costs and with the
     [B, 6] rows measure_costs gives after round 1, dp_cover on its
     choices, measure_costs on emit_model's spans, each against its plain
-    version, exact, with CUDA-event times; untimed, dp_cover's
-    global-scratch walk at 128 KiB blocks on 1 MiB, and all three on
-    fuzz_opt (wraps and clamps); emit_model at the wide optimal encode's
-    shape (8 MB at 32 KiB blocks, 245 blocks, T = 32768) against its
+    version, exact, with CUDA-event times; untimed, dp_parse and
+    dp_cover's global-scratch walk at 128 KiB blocks on 1 MiB, all three
+    on fuzz_opt (wraps and clamps) and dp_parse on fuzz_dp_runs (runs,
+    short and long reaches, five max_len, both cost rows); dp_parse also
+    held and timed at the wide optimal shape (8 MB at 32 KiB blocks, 245
+    blocks) and on 1 MiB of long matches at 8 KiB blocks, with ns a
+    position and the modelled shares of its three steps (dp_steps);
+    emit_model at the wide optimal encode's shape (T = 32768) against its
     plain version, exact, and timed;
 20. e2e_enc_v1_opt: encode_container(parser="optimal", engine="device")
     of the 8 MiB at 8 KiB blocks, checked as 17; MB/s, the ratio and 17's
@@ -164,6 +168,8 @@ V1_OPT = dict(block_size=8192, parser="optimal")  # the v1 device encode, optima
 WIDE_OPT = dict(block_size=32768, profile="wide", parser="optimal")
 WIDE_OPT_REPS = 3  # host-bound (plane batching), ~2 s a call
 BIG_COVER = dict(block_size=131072, bytes=1 << 20)  # dp_cover's global-scratch walk
+DP_RUNS_MAX_LENS = (2, 16, 17, 64, 264)  # fuzz_dp_runs: both sides of the short reach
+DP_SHORT = 16  # dp_steps' model of csrc/dp_parse.cu's SHORT: the longest reach priced from slots
 # launches of one optimal-parse encode (nlzm_tpu/ops/encode_ops.py:708
 # _calibrated_parse, then the profile's encode); a file encode runs it per bucket
 V1_OPT_LAUNCHES = dict(find_matches=1, dp_parse=3, dp_cover=3, repify=3, emit_model=3,
@@ -304,6 +310,74 @@ def fuzz_opt(seed: int, B: int = 48, N: int = 700, C: int = 3):
     return dict(data=data, n_valid=n_valid, delta=delta, mlen=mlen, costs=costs,
                 choice_len=choice_len, choice_cand=choice_cand,
                 commands=(spans, op_len, op_val, op_rep))
+
+
+def fuzz_dp_runs(seed: int, B: int = 12, N: int = 2048, C: int = 3):
+    """dp_parse inputs drawn from a seed, cut into the runs its kernel takes
+    apart: literal-only runs of 1..5000 positions (no distance, or mlen
+    below mmin(d)) between edged segments of 1..600 positions whose reach is
+    at most 16 or up to 300. Block 0 has no valid edge, block 1 reaches
+    above 16 at every position, blocks 2-4 reach 2..16 at every position
+    and block 5 is one literal run; n_valid is 0, N, a run's first or last
+    position, or between (N on blocks 2-5). Cost rows [B, 6]: c_lit within
+    300 of the i32 limits (a run's sum wraps several times), large enough
+    that a run's sum passes DP_BIG, or small; the other columns as
+    fuzz_opt's. Blocks 2-5 hold the kernel's tame rows (every entry
+    0..2^20, N * c_lit <= 2^27) at their limits: block 2 has c_lit = 2^27
+    // N and 2^20 elsewhere, so its chain is all literals and an edge's sum
+    sits near the largest a tame row reaches; blocks 3 (c_lit one more) and
+    4 (one other column at 2^20 + 1) are just past a limit, and block 5's
+    literal sums pass DP_BIG (c_lit = 2^28 // N + 1). Returns delta, mlen
+    [B, N, C], n_valid [B], costs [B, 6], int32; hold dp_parse at each
+    max_len of DP_RUNS_MAX_LENS."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    mmin = lambda d: 2 + (d > 0xFF) + (d > 0xFFF) + (d > 0xFFFFF)
+
+    def dists(shape):  # every mmin class alike
+        cls = rng.integers(0, 4, shape)
+        return rng.integers(np.array([1, 1 << 8, 1 << 12, 1 << 20])[cls],
+                            np.array([1 << 8, 1 << 12, 1 << 20, 1 << 30])[cls])
+
+    delta = np.zeros((B, N, C), np.int64)
+    mlen = np.zeros((B, N, C), np.int64)
+    n_valid = np.zeros(B, np.int64)
+    for b in range(B):
+        bounds, p, edged = [0], 0, bool(rng.integers(2))
+        while p < N:
+            if b in (0, 5) or (b > 4 and not edged):
+                k = min(int(np.exp(rng.uniform(0, np.log(5001)))), N - p)  # log-uniform
+                d = np.where(rng.random((k, C)) < 0.3, rng.integers(-5, 1, (k, C)), dists((k, C)))
+                m = rng.integers(-3, mmin(d))  # below mmin: no valid length
+            else:
+                k = min(int(rng.integers(1, 601)), N - p)
+                top = 300 if b == 1 or (b > 4 and rng.random() < 0.3) else 16
+                d = np.where(rng.random((k, C)) < 0.15, rng.integers(-5, 1, (k, C)), dists((k, C)))
+                m = np.where(rng.random((k, C)) < 0.7, rng.integers(mmin(d), top + 1),
+                             rng.integers(-3, top + 1, (k, C)))
+                if b in (1, 2, 3, 4):  # an edge everywhere: above 16 on block 1, else to 16
+                    d[:, 0] = dists(k)
+                    m[:, 0] = rng.integers(17 if b == 1 else mmin(d[:, 0]), top + 1)
+            delta[b, p:p + k], mlen[b, p:p + k] = d, m
+            p += k
+            bounds.append(p)
+            edged = not edged
+        at = bounds[int(rng.integers(len(bounds)))]
+        n_valid[b] = rng.choice([0, N, at, max(at - 1, 0), int(rng.integers(1, N))])
+    edge = rng.integers(0, 300, (B, 6))
+    costs = np.select([rng.random((B, 6)) < 0.3, rng.random((B, 6)) < 0.5],
+                      [2**31 - 1 - edge, -(2**31) + edge], rng.integers(-50, 400, (B, 6)))
+    costs[:, 0] = np.select(
+        [rng.random(B) < 0.3, rng.random(B) < 0.4, rng.random(B) < 0.5],
+        [2**31 - 1 - edge[:, 0], -(2**31) + edge[:, 0], rng.integers(1 << 16, 1 << 22, B)],
+        rng.integers(-50, 400, B))
+    costs[2:6] = 1 << 20  # the tame limits and just past them
+    costs[2:6, 0] = [(1 << 27) // N, (1 << 27) // N + 1, (1 << 27) // N, (1 << 28) // N + 1]
+    costs[4, rng.integers(1, 6)] += 1
+    n_valid[2:6] = N
+    i32 = lambda a: np.asarray(a, np.int32)
+    return dict(delta=i32(delta), mlen=i32(mlen), n_valid=i32(n_valid), costs=i32(costs))
 
 
 def emit(obj) -> None:
@@ -1063,13 +1137,57 @@ def dp_work(delta, mlen, n_valid, rows, N: int):
     return nbytes(delta, mlen, n_valid, rows) + 2 * 4 * B * N, 10 * B * N + 4 * edges
 
 
+def dp_steps(delta, mlen, max_len: int = 264) -> dict:
+    """Shares of dp_parse's positions by reach, the longest valid length
+    over a position's candidates: "run" (no valid edge), "short" (reach <=
+    DP_SHORT) and "long" (reach above it). A model in Python of the rule by
+    which csrc/dp_parse.cu picks a position's step in a tame cost row (the
+    default and the measured ones), not read from the kernel."""
+    import torch
+
+    from nlzm_tpu_torch.ops import encode_ops as eo
+
+    d = delta.long()
+    mm = eo._mmin(d)
+    top = torch.where(d > 0, mlen.long().clamp(max=max(eo._dp_lens(max_len))), 0)
+    reach = torch.where(top >= mm, top, 0).amax(2)
+    n = reach.numel()
+    return {"run": int((reach == 0).sum()) / n,
+            "short": int(((reach > 0) & (reach <= DP_SHORT)).sum()) / n,
+            "long": int((reach > DP_SHORT).sum()) / n}
+
+
+def long_match_data(seed: int, n: int = 1 << 20) -> bytes:
+    """n bytes of one seeded random segment of 1-4 KiB repeated: past its
+    first copy in each 8 KiB block, a position's candidates hold the
+    segment's distance at the 264-byte match cap."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return np.resize(rng.integers(0, 256, int(rng.integers(1024, 4097)), dtype=np.uint8),
+                     n).tobytes()
+
+
+def dp_timing(delta, mlen, nvt, max_len: int = 264) -> dict:
+    """dp_parse's CUDA-event mean at the default costs, ns a position of
+    one block's chain, and the modelled shares of dp_steps."""
+    from nlzm_tpu_torch.ops import encode_ops as eo
+
+    B, N, _ = delta.shape
+    ms = timed_mean(lambda: eo.dp_parse(delta, mlen, nvt, max_len=max_len), KERNEL_REPS)
+    return dict(blocks=B, positions=N, ms=ms, ns_per_position=ms * 1e6 / N,
+                steps_modelled=dp_steps(delta, mlen, max_len))
+
+
 def check_kernels_opt(tally: Tally, data: bytes, device):
     """The three optimal-parse kernels against their plain versions at the
     8 MiB, 8 KiB-block shapes, exact, with CUDA-event times: dp_parse with
     the default costs and with the [B, 6] rows measure_costs gives after
     round 1, dp_cover on its choices, measure_costs on emit_model's spans;
-    then, untimed, dp_cover's global-scratch path at 128 KiB blocks on 1
-    MiB and all three on fuzz_opt."""
+    then, untimed, dp_parse and dp_cover's global-scratch path at 128 KiB
+    blocks on 1 MiB, all three on fuzz_opt and dp_parse on fuzz_dp_runs;
+    dp_parse held and timed apart at the wide optimal shape and on the
+    long-match input (dp_timing)."""
     import torch
 
     from nlzm_tpu_torch.ops import encode_ops as eo
@@ -1083,6 +1201,7 @@ def check_kernels_opt(tally: Tally, data: bytes, device):
     choice = tally.hold("dp_parse", lambda: eo.dp_parse(delta, mlen, nvt),
                         lambda: eo.dp_parse_ref(delta, mlen, nvt), reps_plain=1,
                         work=dp_work(delta, mlen, nvt, defaults, N))
+    dp_8k = dp_timing(delta, mlen, nvt)
     cov = (dt, delta, *choice, nvt, T)
     op_len, op_val = eo.dp_cover(*cov)  # for the work count
     n_cmd = int(torch.count_nonzero(op_len >= 0))
@@ -1108,7 +1227,9 @@ def check_kernels_opt(tally: Tally, data: bytes, device):
     arr, nv = eo._blocks_arrays(data[: BIG_COVER["bytes"]], big)
     bt, bnv = torch.as_tensor(arr, device=device), torch.as_tensor(nv, device=device)
     bd, bm = eo.find_matches(bt, bnv, big - 1, 3)
-    bcov = (bt, bd, *eo.dp_parse(bd, bm, bnv), bnv, big)
+    bchoice = tally.hold("dp_parse", lambda: eo.dp_parse(bd, bm, bnv),
+                         lambda: eo.dp_parse_ref(bd, bm, bnv), timed=False)
+    bcov = (bt, bd, *bchoice, bnv, big)
     tally.hold("dp_cover", lambda: eo.dp_cover(*bcov), lambda: eo.dp_cover_ref(*bcov),
                timed=False)
     del bd, bm, bcov
@@ -1117,9 +1238,14 @@ def check_kernels_opt(tally: Tally, data: bytes, device):
     # blocks, the commands of its last round): held, then timed
     WN = WIDE_OPT["block_size"]
     warr, wnv = eo._blocks_arrays(data[:SHIP_BYTES], WN)
-    wl, wv = eo._device_parse(torch.as_tensor(warr, device=device),
-                              torch.as_tensor(wnv, device=device), (1 << ENC_HIST_BITS) - 1,
-                              (WN + 255) // 256 * 256, "optimal")
+    wt, wnvt = torch.as_tensor(warr, device=device), torch.as_tensor(wnv, device=device)
+    wd, wm = eo.find_matches(wt, wnvt, (1 << ENC_HIST_BITS) - 1, 3)
+    tally.hold("dp_parse", lambda: eo.dp_parse(wd, wm, wnvt), lambda: eo.dp_parse_ref(wd, wm, wnvt),
+               timed=False)
+    dp_wide = dp_timing(wd, wm, wnvt)
+    del wd, wm
+    wl, wv = eo._device_parse(wt, wnvt, (1 << ENC_HIST_BITS) - 1, (WN + 255) // 256 * 256,
+                              "optimal")
     wcmds = (wl, wv, eo.repify(wl, wv))
     t0 = time.perf_counter()
     tally.hold("emit_model", lambda: eo.emit_model(*wcmds), lambda: eo.emit_model_ref(*wcmds),
@@ -1137,6 +1263,20 @@ def check_kernels_opt(tally: Tally, data: bytes, device):
         tally.hold("dp_parse", lambda: eo.dp_parse(fz["delta"], fz["mlen"], fz["n_valid"], costs_f),
                    lambda: eo.dp_parse_ref(fz["delta"], fz["mlen"], fz["n_valid"], costs_f),
                    timed=False)
+    fr = {k: torch.as_tensor(v, device=device) for k, v in fuzz_dp_runs(7).items()}
+    for max_len in DP_RUNS_MAX_LENS:
+        for costs_f in (None, fr["costs"]):
+            args = (fr["delta"], fr["mlen"], fr["n_valid"], costs_f, max_len)
+            tally.hold("dp_parse", lambda: eo.dp_parse(*args), lambda: eo.dp_parse_ref(*args),
+                       timed=False)
+
+    # long matches: most positions take the warp-wide relaxation
+    larr, lnv = eo._blocks_arrays(long_match_data(11), N)  # a 1435-byte segment
+    lt, lnvt = torch.as_tensor(larr, device=device), torch.as_tensor(lnv, device=device)
+    ld, lm = eo.find_matches(lt, lnvt, (1 << V1_ENC_HIST_BITS) - 1, 3)
+    tally.hold("dp_parse", lambda: eo.dp_parse(ld, lm, lnvt), lambda: eo.dp_parse_ref(ld, lm, lnvt),
+               timed=False)
+    dp_long = dp_timing(ld, lm, lnvt)
     fcov = (fz["data"], fz["delta"], fz["choice_len"], fz["choice_cand"], fz["n_valid"],
             fz["data"].shape[1] + 64)
     tally.hold("dp_cover", lambda: eo.dp_cover(*fcov), lambda: eo.dp_cover_ref(*fcov),
@@ -1144,7 +1284,8 @@ def check_kernels_opt(tally: Tally, data: bytes, device):
     tally.hold("measure_costs", lambda: eo.measure_costs(*fz["commands"]),
                lambda: eo.measure_costs_ref(*fz["commands"]), timed=False)
     return {"blocks": B, "steps": T, "commands_round1": n_cmd,
-            "big_cover": dict(blocks=bt.shape[0], **BIG_COVER), "emit_model_wide": wide}
+            "big_cover": dict(blocks=bt.shape[0], **BIG_COVER), "emit_model_wide": wide,
+            "dp_parse_8k": dp_8k, "dp_parse_wide": dp_wide, "dp_parse_long_match": dp_long}
 
 
 def exact_launches(label: str, launches: dict, per_run: dict, runs: int = 1) -> None:

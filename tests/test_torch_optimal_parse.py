@@ -3,7 +3,8 @@ dp_cover, measure_costs, the calibrated parse) against the JAX functions,
 exact: each function in every calibration round of the JAX parse of the
 corpus samples at 4 KiB blocks; dp_parse on hand-made cost rows (ties
 between lengths and between candidates, sums that wrap i32) and on
-chip_smoke.py's fuzz set; dp_cover on hostile choices; measure_costs on
+chip_smoke.py's fuzz sets (fuzz_opt; fuzz_dp_runs, the runs, short and
+long reaches that csrc/dp_parse.cu takes apart); dp_cover on hostile choices; measure_costs on
 the fuzz set, where JAX's own float32 rounding may sit on the other side
 of a .5 edge; device checks of the wrappers; card-only kernel-vs-plain
 cases. The entry points of the optimal parse are in
@@ -16,7 +17,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from chip_smoke import fuzz_opt
+from chip_smoke import DP_RUNS_MAX_LENS, dp_steps, fuzz_dp_runs, fuzz_opt
 from nlzm_tpu.ops import encode_ops as jenc
 from nlzm_tpu_torch.ops import encode_ops as tenc
 
@@ -309,3 +310,55 @@ def test_opt_kernels_match_ref_on_fuzz(fuzz, cuda, seed):
     assert all(torch.equal(g, w) for g, w in zip(tenc.dp_cover(*args), tenc.dp_cover_ref(*args)))
     cmds = tuple(_t(a).to(cuda) for a in f["commands"])
     assert torch.equal(tenc.measure_costs(*cmds), tenc.measure_costs_ref(*cmds))
+
+
+@pytest.mark.parametrize("max_len", DP_RUNS_MAX_LENS)
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_dp_parse_runs_match_jax(seed, max_len):
+    """chip_smoke.fuzz_dp_runs, with its cost rows and the defaults: literal
+    runs whose sums wrap and pass DP_BIG, short and long reaches, n_valid
+    at a run's ends, max_len on both sides of the short reach."""
+    f = fuzz_dp_runs(seed)
+    for costs in (None, f["costs"]):
+        jl, jc = jenc.dp_parse(jnp.asarray(f["delta"]), jnp.asarray(f["mlen"]),
+                               jnp.asarray(f["n_valid"]),
+                               None if costs is None else jnp.asarray(costs), max_len=max_len)
+        tl, tc = tenc.dp_parse(_t(f["delta"]), _t(f["mlen"]), _t(f["n_valid"]),
+                               None if costs is None else _t(costs), max_len)
+        np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+        np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+
+
+def test_fuzz_dp_runs_covers_every_reach():
+    """Block 0 and block 5 have no valid edge, block 1 reaches above 16 at
+    every position and blocks 2-4 at most 16; the set holds positions of
+    every reach class (none, <= 16, above), n_valid 0 and N, c_lit near
+    both i32 limits, and blocks 2-5 hold the tame cost rows at and just
+    past their limits (every entry 0..2^20, N * c_lit <= 2^27)."""
+    f = fuzz_dp_runs(0)
+    d, m = _t(f["delta"]), _t(f["mlen"])
+    N = d.shape[1]
+    for b in (0, 5):
+        assert dp_steps(d[b:b + 1], m[b:b + 1]) == {"run": 1.0, "short": 0.0, "long": 0.0}
+    assert dp_steps(d[1:2], m[1:2])["long"] == 1.0
+    assert dp_steps(d[2:5], m[2:5])["short"] == 1.0
+    assert all(v > 0.05 for v in dp_steps(d, m).values())
+    nv, costs = f["n_valid"], f["costs"].astype(np.int64)
+    assert (nv == 0).any() and (nv == N).any() and (nv[2:6] == N).all()
+    c_lit = costs[:, 0]
+    assert (c_lit > 2**31 - 301).any() and (c_lit < -(2**31) + 301).any()
+    tame = (costs >= 0).all(1) & (costs <= 1 << 20).all(1) & (c_lit * N <= 1 << 27)
+    assert tame[2] and not tame[3] and not tame[4] and not tame[5]
+    assert c_lit[2] * N == 1 << 27 and (costs[2, 1:] == 1 << 20).all()
+    assert c_lit[3] * N == (1 << 27) + N and (costs[4] == (1 << 20) + 1).sum() == 1
+    assert (1 << 28) < c_lit[5] * N <= (1 << 28) + N
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_dp_parse_kernel_matches_ref_on_runs(cuda, seed):
+    f = {k: _t(v).to(cuda) for k, v in fuzz_dp_runs(seed).items()}
+    for max_len in DP_RUNS_MAX_LENS:
+        for costs in (None, f["costs"]):
+            args = (f["delta"], f["mlen"], f["n_valid"], costs, max_len)
+            got, want = tenc.dp_parse(*args), tenc.dp_parse_ref(*args)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
