@@ -85,7 +85,13 @@ card and fails (nonzero exit, no result line) on anything wrong:
     blocks) and on 1 MiB of long matches at 8 KiB blocks, with ns a
     position and the modelled shares of its three steps (dp_steps);
     emit_model at the wide optimal encode's shape (T = 32768) against its
-    plain version, exact, and timed;
+    plain version, exact, and timed; then phase kernels_cover: the cover
+    walk (greedy_cover and dp_cover, csrc/greedy_cover.cu) against its
+    plain versions, exact, at every shape it runs (1024 x 8192, 245 x
+    32768 with dp at C = 3, the global-scratch path at 128 KiB blocks),
+    on 1 MiB of long matches, fuzz_opt and every fuzz_cover pattern (16 x
+    4096, 1024 x 8192, 4 x 131072); each but the small fuzz sets timed,
+    with ns a command and resident CTAs an SM (cover_timing);
 20. e2e_enc_v1_opt: encode_container(parser="optimal", engine="device")
     of the 8 MiB at 8 KiB blocks, checked as 17; MB/s, the ratio and 17's
     greedy ratio;
@@ -169,6 +175,7 @@ WIDE_OPT = dict(block_size=32768, profile="wide", parser="optimal")
 WIDE_OPT_REPS = 3  # host-bound (plane batching), ~2 s a call
 BIG_COVER = dict(block_size=131072, bytes=1 << 20)  # dp_cover's global-scratch walk
 DP_RUNS_MAX_LENS = (2, 16, 17, 64, 264)  # fuzz_dp_runs: both sides of the short reach
+COVER_W = 32  # csrc/greedy_cover.cu: positions a segment, one mask word
 DP_SHORT = 16  # dp_steps' model of csrc/dp_parse.cu's SHORT: the longest reach priced from slots
 # launches of one optimal-parse encode (nlzm_tpu/ops/encode_ops.py:708
 # _calibrated_parse, then the profile's encode); a file encode runs it per bucket
@@ -378,6 +385,137 @@ def fuzz_dp_runs(seed: int, B: int = 12, N: int = 2048, C: int = 3):
     n_valid[2:6] = N
     i32 = lambda a: np.asarray(a, np.int32)
     return dict(delta=i32(delta), mlen=i32(mlen), n_valid=i32(n_valid), costs=i32(costs))
+
+
+def fuzz_cover(seed: int, B: int = 16, N: int = 4096, C: int = 3) -> dict:
+    """Inputs of the cover walk (greedy_cover, dp_cover) drawn from a seed,
+    for the worst cases of csrc/greedy_cover.cu's segmented walk, one dict
+    a pattern of steps:
+    - "never_meet": 3 at position 0 and 2 after it, so the walk from 0
+      never meets the walks from the even positions;
+    - "long_match": a 264-long match at every position of a run of zeros:
+      every segment is crossed by one step;
+    - "far_jumps": mostly steps of 33..N + 300, over whole segments and
+      past N;
+    - "literals": a step of 1 everywhere, a start at every position;
+    - "mixed": literals and matches of every length, 1% of them up to N +
+      300;
+    - "few_steps": literals and matches of 2..16 with num_steps 37, below
+      the command count.
+    A literal is a hostile one at random: greedy delta <= 0 (any mlen) or
+    mlen below mmin(delta); dp choice_len -3..1 (1 is a match of length 1).
+    Each dict: data [B, N] uint8, n_valid [B] (0, 1, mid-segment, N - 1,
+    N, then 1..N), greedy delta / mlen [B, N], dp delta3 [B, N, C] (-5..
+    2^30) with choice_len / choice_cand [B, N] (candidates -2..C + 1),
+    int32, and num_steps (N, or 37)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    shape = (B, N)
+    i32 = lambda a: np.asarray(a, np.int32)
+    mmin = lambda d: 2 + (d > 0xFF) + (d > 0xFFF) + (d > 0xFFFFF)
+    lo = np.array([1, 1 << 8, 1 << 12, 1 << 20])  # a distance of each mmin class 2..5
+    hi = np.array([1 << 8, 1 << 12, 1 << 20, 1 << 30])
+    fixed = [0, 1, 32 * int(rng.integers(1, N // 32)) + 17, N - 1, N]
+    n_valid = np.where(rng.random(B) < 0.3, N, rng.integers(1, N + 1, B))
+    n_valid[:min(B, 5)] = fixed[:B]
+
+    u = rng.random(shape)
+    short = np.where(u < 0.5, 1, rng.integers(2, 17, shape))
+
+    steps = {
+        "never_meet": np.full(shape, 2),
+        "long_match": np.full(shape, 264),
+        "far_jumps": np.where(rng.random(shape) < 0.8, rng.integers(33, N + 301, shape),
+                              rng.integers(1, 33, shape)),
+        "literals": np.ones(shape, np.int64),
+        "mixed": np.select([u < 0.8, u < 0.99], [short, rng.integers(17, 265, shape)],
+                           rng.integers(2, N + 301, shape)),
+        "few_steps": short,
+    }
+    steps["never_meet"][:, 0] = 3
+    out = {}
+    for name, st in steps.items():
+        lit = st == 1
+        cls = np.minimum(rng.integers(0, 4, shape), np.clip(st - 2, 0, 3))  # mmin(d) <= st
+        d = rng.integers(lo[cls], hi[cls])
+        hostile = rng.random(shape) < 0.5
+        d_lit = np.where(hostile, rng.integers(-5, 1, shape), d)
+        m_lit = np.where(hostile, rng.integers(-3, N + 301, shape),
+                         rng.integers(-3, mmin(d)))
+        zeros = name == "long_match"
+        data = np.zeros(shape, np.uint8) if zeros else rng.integers(0, 256, shape, np.uint8)
+        delta = np.where(lit, d_lit, 1 if zeros else d)
+        delta3 = np.where(rng.random((B, N, C)) < 0.3, rng.integers(-5, 2, (B, N, C)),
+                          rng.integers(1, 1 << 30, (B, N, C)))
+        out[name] = dict(data=data, n_valid=i32(n_valid), delta=i32(delta),
+                         mlen=i32(np.where(lit, m_lit, st)), delta3=i32(delta3),
+                         choice_len=i32(np.where(lit, rng.integers(-3, 2, shape), st)),
+                         choice_cand=i32(rng.integers(-2, C + 2, shape)),
+                         num_steps=37 if name == "few_steps" else N)
+    return out
+
+
+def cover_model(data, delta, length, n_valid, num_steps: int, cand=None, W: int = COVER_W):
+    """A numpy model of csrc/greedy_cover.cu's segmented walk, W positions
+    a segment. Greedy when cand is None (delta, length: [B, N] delta and
+    mlen), else dp (delta [B, N, C], length: choice_len, cand:
+    choice_cand). 1. next[p] = min(p + step, N) by the kernel's rules; 2.
+    J[p], the first position of the walk from p at or past its segment's
+    end, by one backward pass a segment (J[p] = next[p] if that is past the
+    segment, else J[next[p]]); 3. the crossing walk q <- J[q] from 0 while
+    q < n_valid, each q its segment's entry; 4. each entered segment walked
+    by next from its entry to its end or n_valid, marking starts, the walk
+    that crosses n_valid giving the end; 5. the starts in order, those at
+    num_steps or later dropped, then the dead rows (-1, the byte at the
+    end clamped to N - 1). Returns (op_len, op_val) [num_steps, B] int32."""
+    import numpy as np
+
+    data = np.asarray(data)
+    B, N = data.shape
+    d, ln = np.asarray(delta, np.int64), np.asarray(length, np.int64)
+    byte = data.astype(np.int64)
+    if cand is None:
+        use = (d > 0) & (ln >= 2 + (d > 0xFF) + (d > 0xFFF) + (d > 0xFFFFF))
+        step = np.where(use, ln, 1)
+    else:
+        c = np.asarray(cand, np.int64)
+        C = d.shape[2]
+        d = np.take_along_axis(d, np.clip(c, 0, C - 1)[..., None], 2)[..., 0]
+        d = np.where((c >= 0) & (c < C), d, 0)
+        use = ln > 0
+        step = np.maximum(ln, 1)
+    cmd_len, cmd_val = np.where(use, ln, 0), np.where(use, d, byte)
+    pos = np.arange(N)
+    nxt = np.minimum(pos + step, N)  # 1
+    seg_end = np.minimum((pos // W + 1) * W, N)
+    jump = np.full((B, N + 1), N, np.int64)
+    for i in range(W - 1, -1, -1):  # 2: every segment's offset i at once
+        p = pos[i::W]
+        nx = nxt[:, p]
+        jump[:, p] = np.where(nx >= seg_end[p], nx, np.take_along_axis(jump, nx, 1))
+    op_len = np.full((num_steps, B), -1, np.int32)
+    op_val = np.zeros((num_steps, B), np.int32)
+    for b in range(B):
+        nv = min(max(int(n_valid[b]), 0), N)
+        entries, q = [], 0
+        while q < nv:  # 3
+            entries.append(q)
+            q = int(jump[b, q])
+        starts, end = [], 0
+        for e in entries:  # 4
+            cur, lim = e, min((e // W + 1) * W, nv)
+            while cur < lim:
+                starts.append(cur)
+                cur = int(nxt[b, cur])
+            if cur >= nv:
+                end = cur
+        ncmd = min(len(starts), num_steps)  # 5
+        at = np.asarray(starts[:ncmd], np.int64)
+        op_len[:ncmd, b] = cmd_len[b, at]
+        op_val[:ncmd, b] = cmd_val[b, at]
+        op_val[ncmd:, b] = byte[b, min(end, N - 1)]
+    return op_len, op_val
 
 
 def emit(obj) -> None:
@@ -903,7 +1041,7 @@ def check_kernels_enc(tally: Tally, data: bytes, device):
     n_cmd = int(torch.count_nonzero(op_len >= 0))
     op_len, op_val = tally.hold(
         "greedy_cover", lambda: eo.greedy_cover(*gc), lambda: eo.greedy_cover_ref(*gc),
-        reps_plain=1, work=(nbytes(dt, delta, mlen, nvt, op_len, op_val), 10 * n_cmd + 2 * T * B))
+        reps_plain=1, work=cover_work("greedy_cover", gc[:4], op_len, op_val))
     tally.hold("repify", lambda: eo.repify(op_len, op_val), lambda: eo.repify_ref(op_len, op_val),
                reps_plain=1, work=(3 * nbytes(op_len), 12 * T * B))
 
@@ -1207,7 +1345,7 @@ def check_kernels_opt(tally: Tally, data: bytes, device):
     n_cmd = int(torch.count_nonzero(op_len >= 0))
     op_len, op_val = tally.hold(
         "dp_cover", lambda: eo.dp_cover(*cov), lambda: eo.dp_cover_ref(*cov), reps_plain=1,
-        work=(nbytes(*cov[:5], op_len, op_val), 10 * n_cmd + 2 * T * B))
+        work=cover_work("dp_cover", cov[:5], op_len, op_val))
     op_rep = eo.repify(op_len, op_val)
     spans, _, _ = eo.emit_model(op_len, op_val, op_rep)
     mc = (spans, op_len, op_val, op_rep)
@@ -1286,6 +1424,118 @@ def check_kernels_opt(tally: Tally, data: bytes, device):
     return {"blocks": B, "steps": T, "commands_round1": n_cmd,
             "big_cover": dict(blocks=bt.shape[0], **BIG_COVER), "emit_model_wide": wide,
             "dp_parse_8k": dp_8k, "dp_parse_wide": dp_wide, "dp_parse_long_match": dp_long}
+
+
+def cover_work(name: str, args, op_len, op_val):
+    """The cover walk's (bytes, ops): the step inputs read once (greedy:
+    data, delta, mlen, n_valid; dp: data, choice_len, choice_cand,
+    n_valid), the two [T, B] outputs written once, and for dp one 32-byte
+    sector of delta [B, N, C] a match start, where the chosen distance is
+    read (the rest of delta is never needed); ~10 operations a command
+    (mask bit, scan, command) and 2 a row written."""
+    import torch
+
+    T, B = op_len.shape
+    n_cmd = int(torch.count_nonzero(op_len >= 0))
+    if name == "greedy_cover":
+        byts = nbytes(*args)
+    else:
+        data, _, choice_len, choice_cand, n_valid = args
+        byts = nbytes(data, choice_len, choice_cand, n_valid) + 32 * int(
+            torch.count_nonzero(op_len > 0))
+    return byts + nbytes(op_len, op_val), 10 * n_cmd + 2 * T * B
+
+
+def cover_ctas_per_sm(N: int, dp: bool) -> float:
+    """CTAs of csrc/greedy_cover.cu's kernel resident on the card at block
+    length N, as the CUDA occupancy calculator gives them (in clusters of
+    8), over its SMs."""
+    import torch
+
+    from nlzm_tpu_torch import _build
+
+    dev = torch.cuda.current_device()
+    fn = _build.entry("greedy_cover", "nlzm_cover_ctas_resident", 0, 2)
+    n = fn(N, int(dp), dev, None)
+    if n < 0:
+        raise RuntimeError(f"nlzm_cover_ctas_resident: CUDA error {-n}")
+    return n / torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def cover_timing(name: str, args, T: int, out) -> dict:
+    """The cover kernel `name` ("greedy_cover" or "dp_cover") on args with
+    T steps: CUDA-event mean, ns a command of the longest block's chain,
+    resident CTAs an SM, and its bound (cover_work)."""
+    import torch
+
+    from nlzm_tpu_torch.ops import encode_ops as eo
+
+    kernel = getattr(eo, name)
+    ms = timed_mean(lambda: kernel(*args, T), KERNEL_REPS)
+    live = out[0] >= 0
+    n_cmd, longest = int(torch.count_nonzero(live)), int(live.sum(0).max())
+    b_ms, b_by = bound(*cover_work(name, args, *out))
+    return dict(blocks=out[0].shape[1], positions=args[0].shape[1], steps=T, commands=n_cmd,
+                max_cmds=longest, ms=ms, ns_per_command=ms * 1e6 / max(longest, 1),
+                ctas_per_sm=cover_ctas_per_sm(args[0].shape[1], name == "dp_cover"),
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def check_cover(tally: Tally, corpus: bytes, device) -> dict:
+    """Phase kernels_cover: greedy_cover and dp_cover (csrc/greedy_cover.cu)
+    against their plain versions, exact, at every shape they run: the v1
+    encodes' 1024 x 8192 and the wide encodes' 245 x 32768 (dp on the
+    first round's choices, C = 3), the global-scratch path at 128 KiB
+    blocks (1 MiB), 1 MiB of long matches at 8 KiB blocks, fuzz_opt, and
+    every fuzz_cover pattern at 16 x 4096, at 1024 x 8192 and at 4 x
+    131072; each timed but fuzz_opt's and the small fuzz_cover's
+    (cover_timing). Returns the phase's fields."""
+    import torch
+
+    from nlzm_tpu_torch.ops import encode_ops as eo
+
+    put = lambda a: torch.as_tensor(a, device=device)
+
+    def hold(name, args, T, into=None, key=None):
+        kernel, plain = getattr(eo, name), getattr(eo, f"{name}_ref")
+        out = tally.hold(name, lambda: kernel(*args, T), lambda: plain(*args, T), timed=False)
+        if into is not None:
+            into.setdefault(key, {})[name] = cover_timing(name, args, T, out)
+
+    def parsed(data: bytes, N: int, reach: int, into, key):
+        arr, nv = eo._blocks_arrays(data, N)
+        dt, nvt = put(arr), put(nv)
+        T = (N + 255) // 256 * 256
+        hold("greedy_cover", (dt, *eo.find_matches(dt, nvt, reach), nvt), T, into, key)
+        d3, m3 = eo.find_matches(dt, nvt, reach, 3)
+        hold("dp_cover", (dt, d3, *eo.dp_parse(d3, m3, nvt), nvt), T, into, key)
+
+    def patterns(seed, B, N, into=None):
+        for pat, f in fuzz_cover(seed, B, N).items():
+            g = tuple(put(f[k]) for k in ("data", "delta", "mlen", "n_valid"))
+            hold("greedy_cover", g, f["num_steps"], into, pat)
+            d = tuple(put(f[k]) for k in ("data", "delta3", "choice_len", "choice_cand", "n_valid"))
+            hold("dp_cover", d, f["num_steps"], into, pat)
+            del g, d
+
+    shapes, worst = {}, {}
+    v1, wide = V1_ENC["block_size"], WIDE_OPT["block_size"]
+    parsed(corpus[:V1_ENC_BYTES], v1, (1 << V1_ENC_HIST_BITS) - 1, shapes, "v1_1024x8192")
+    parsed(corpus[:SHIP_BYTES], wide, (1 << ENC_HIST_BITS) - 1, shapes, "wide_245x32768")
+    big = BIG_COVER["block_size"]
+    parsed(corpus[:BIG_COVER["bytes"]], big, big - 1, shapes, "global_8x131072")
+    parsed(long_match_data(11), v1, (1 << V1_ENC_HIST_BITS) - 1, worst, "long_match_128x8192")
+    fz = fuzz_opt(7)
+    T = fz["data"].shape[1] + 64
+    hold("greedy_cover", tuple(put(a) for a in (fz["data"], fz["delta"][..., 0],
+                                                fz["mlen"][..., 0], fz["n_valid"])), T)
+    hold("dp_cover", tuple(put(fz[k]) for k in ("data", "delta", "choice_len", "choice_cand",
+                                                "n_valid")), T)
+    patterns(7, 16, 4096)
+    patterns(7, 1024, v1, worst)
+    patterns(7, 4, big)
+    return {"shapes": shapes, "worst_cases": worst,
+            "worst_cases_shape": "fuzz_cover(7) patterns at 1024 x 8192; long_match_data(11)"}
 
 
 def exact_launches(label: str, launches: dict, per_run: dict, runs: int = 1) -> None:
@@ -1723,6 +1973,12 @@ def main() -> int:
     enc_launches = run_encode(tally, data, "cuda", card, greedy)
     v1enc_launches = run_v1_encode(tally, corpus[:V1_ENC_BYTES], "cuda", card, greedy)
     opt_launches = run_opt_encode(tally, corpus[:V1_ENC_BYTES], "cuda", card, greedy)
+    t0 = time.perf_counter()
+    cover = check_cover(tally, corpus, "cuda")
+    emit({"phase": "kernels_cover", "ok": True, **cover, "seconds": time.perf_counter() - t0,
+          "timing": f"CUDA events, mean of {KERNEL_REPS} back-to-back calls; ns a command of "
+                    f"the longest block's chain; CTAs an SM from the occupancy calculator",
+          "card": card})
     plane_launches, plane_shape = check_plane_decode(tally, wide_c, "cuda")
     emit({"phase": "kernels_plane_decode", "ok": True, **plane_shape,
           "kernels": tally.summary(("plane_decode",)), "launches": plane_launches,

@@ -157,34 +157,42 @@ def _mmin(d):
     return 2 + (d > 0xFF).long() + (d > 0xFFF).long() + (d > 0xFFFFF).long()
 
 
-def greedy_cover_ref(data, delta, mlen, n_valid, num_steps: int):
-    """Plain version of greedy_cover: one loop iteration per step, blocks
-    as tensors. Once every block is past its end the state no longer
-    changes, and the remaining rows are filled at once."""
+def _cover_ref(data, step, length, value, n_valid, num_steps: int):
+    """The walk of greedy_cover_ref and dp_cover_ref, by pointer doubling.
+    next[p] = min(p + step[p], N), with N and every position at or past
+    n_valid absorbing; start i of a block is next^i(0), for all i <
+    num_steps at once, composed from next^(2^k) by the bits of i (one
+    doubled table kept at a time). A start p < n_valid emits (length[p],
+    value[p]); every later row is (-1, the byte at the walk's end clamped
+    to N - 1). step, length and value are int64 [B, N]."""
     B, N = data.shape
     dev = data.device
-    data_i = data.long()
-    delta, mlen = delta.long(), mlen.long()
-    nv = n_valid.long()
-    op_len = torch.empty(num_steps, B, dtype=torch.int32, device=dev)
-    op_val = torch.empty(num_steps, B, dtype=torch.int32, device=dev)
-    pos = torch.zeros(B, dtype=torch.long, device=dev)
-    for s in range(num_steps):
-        at = pos.clamp(0, N - 1)[:, None]
-        d = delta.gather(1, at)[:, 0]
-        l = mlen.gather(1, at)[:, 0]
-        byte = data_i.gather(1, at)[:, 0]
-        active = pos < nv
-        if s % 64 == 0 and not bool(active.any()):
-            op_len[s:] = -1
-            op_val[s:] = byte.to(torch.int32)
-            break
-        use = active & (d > 0) & (l >= _mmin(d))
-        length = torch.where(use, l, 0)
-        op_len[s] = torch.where(active, length, -1).to(torch.int32)
-        op_val[s] = torch.where(use, d, byte).to(torch.int32)
-        pos = pos + torch.where(active, length.clamp(min=1), 0)
-    return op_len, op_val
+    pos = torch.arange(N + 1, device=dev).expand(B, N + 1)
+    nv = n_valid.long().clamp(0, N)[:, None]
+    nxt = torch.cat([(pos[:, :N] + step).clamp(max=N), pos[:, N:]], dim=1)
+    nxt = torch.where(pos >= nv, pos, nxt)
+    i = torch.arange(num_steps, device=dev)
+    at = torch.zeros(B, num_steps, dtype=torch.long, device=dev)
+    k = 0
+    while (1 << k) < num_steps:
+        at = torch.where(((i >> k) & 1).bool(), nxt.gather(1, at), at)
+        k += 1
+        if (1 << k) < num_steps:
+            nxt = nxt.gather(1, nxt)
+    live = at < nv
+    at = at.clamp(max=N - 1)
+    op_len = torch.where(live, length.gather(1, at), -1)
+    op_val = torch.where(live, value.gather(1, at), data.long().gather(1, at))
+    return op_len.T.to(torch.int32).contiguous(), op_val.T.to(torch.int32).contiguous()
+
+
+def greedy_cover_ref(data, delta, mlen, n_valid, num_steps: int):
+    """Plain version of greedy_cover: each position's command at once,
+    then the walk by pointer doubling (_cover_ref)."""
+    d, l = delta.long(), mlen.long()
+    use = (d > 0) & (l >= _mmin(d))
+    return _cover_ref(data, torch.where(use, l, 1), torch.where(use, l, 0),
+                      torch.where(use, d, data.long()), n_valid, num_steps)
 
 
 def greedy_cover(data, delta, mlen, n_valid, num_steps: int):
@@ -240,10 +248,23 @@ _DP_CANDS = 3  # csrc/dp_parse.cu takes the calibrated parse's three candidates
 _DP_CHUNK = 64  # dp_parse_ref: positions whose window-free edge costs are built at once
 
 
+_default_rows: dict = {}
+
+
 def default_dp_costs(device="cpu"):
     """[LIT, CMD_M, LEN_BASE, LEN_SLOPE, LEN_ESC, DIST_SLOT] in 1/16 bit,
-    int32 [6]."""
+    int32 [6], a fresh tensor."""
     return torch.tensor(_DP_COSTS, dtype=torch.int32, device=device)
+
+
+def _default_costs_on(device):
+    """default_dp_costs on `device`, made once per device and shared, so a
+    call on the card uploads nothing; the wrappers only read it."""
+    key = str(torch.device(device))
+    t = _default_rows.get(key)
+    if t is None:
+        t = _default_rows[key] = default_dp_costs(device)
+    return t
 
 
 def _dp_lens(max_len: int):
@@ -256,7 +277,7 @@ def _dp_lens(max_len: int):
 def _cost_rows(costs, B: int, device):
     """costs None, [6] or [B, 6] int32 -> [B, 6] int32, contiguous."""
     if costs is None:
-        costs = default_dp_costs(device)
+        costs = _default_costs_on(device)
     if costs.shape not in ((6,), (B, 6)) or costs.dtype != torch.int32:
         raise ValueError("dp_parse: costs [6] or [B, 6] int32 expected")
     return costs.expand(B, 6).contiguous()
@@ -354,33 +375,16 @@ dp_parse.launches = 0
 
 
 def dp_cover_ref(data, delta, choice_len, choice_cand, n_valid, num_steps: int):
-    """Plain version of dp_cover: each position's distance picked at once,
-    then one loop iteration per step, as greedy_cover_ref."""
-    B, N, C = delta.shape
-    dev = data.device
-    data_i = data.long()
+    """Plain version of dp_cover: each position's command at once, then
+    the walk by pointer doubling, as greedy_cover_ref."""
+    C = delta.shape[2]
     cl = choice_len.long()
     cand = choice_cand.long()
     ok = (cand >= 0) & (cand < C)
     dist = torch.where(ok, delta.long().gather(2, cand.clamp(0, C - 1)[..., None])[..., 0], 0)
-    nv = n_valid.long()
-    op_len = torch.empty(num_steps, B, dtype=torch.int32, device=dev)
-    op_val = torch.empty(num_steps, B, dtype=torch.int32, device=dev)
-    pos = torch.zeros(B, dtype=torch.long, device=dev)
-    for s in range(num_steps):
-        at = pos.clamp(0, N - 1)[:, None]
-        l = cl.gather(1, at)[:, 0]
-        byte = data_i.gather(1, at)[:, 0]
-        active = pos < nv
-        if s % 64 == 0 and not bool(active.any()):
-            op_len[s:] = -1
-            op_val[s:] = byte.to(torch.int32)
-            break
-        use = active & (l > 0)
-        op_len[s] = torch.where(active, torch.where(use, l, 0), -1).to(torch.int32)
-        op_val[s] = torch.where(use, dist.gather(1, at)[:, 0], byte).to(torch.int32)
-        pos = pos + torch.where(active, l.clamp(min=1), 0)
-    return op_len, op_val
+    use = cl > 0
+    return _cover_ref(data, cl.clamp(min=1), torch.where(use, cl, 0),
+                      torch.where(use, dist, data.long()), n_valid, num_steps)
 
 
 def dp_cover(data, delta, choice_len, choice_cand, n_valid, num_steps: int):
@@ -507,7 +511,7 @@ def measure_costs(spans, op_len, op_val, op_rep):
     fn = _build.entry("measure_costs", "nlzm_measure_costs", 7, 2)
     _build.launch(fn, [spans.data_ptr(), op_len.data_ptr(), op_val.data_ptr(),
                        op_rep.data_ptr(), bits16_table(dev).data_ptr(),
-                       default_dp_costs(dev).data_ptr(), costs.data_ptr()], [T, B], dev)
+                       _default_costs_on(dev).data_ptr(), costs.data_ptr()], [T, B], dev)
     measure_costs.launches += 1
     return costs
 
