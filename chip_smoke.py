@@ -47,7 +47,8 @@ card and fails (nonzero exit, no result line) on anything wrong:
 13. kernels_enc: the device encode's kernels at the 8 MB, 32 KiB-block
     shapes (245 blocks), each against its plain version, exact, with
     CUDA-event times: find_matches with 1 and 3 candidates (reach 32767),
-    greedy_cover and repify on its output, plane_encode on the five
+    greedy_cover and repify on its output (repify also with ns a match,
+    ns a row and rep_model's runs: rep_timing), plane_encode on the five
     planes (with priors) of the bench's native-parsed commands, and on a
     synthetic 4-row plane;
 14. e2e_enc_greedy: encode_container(profile="wide", parser="greedy",
@@ -65,7 +66,8 @@ card and fails (nonzero exit, no result line) on anything wrong:
     times; rans_backward and bits_forward also at a 101-byte cap, where
     writes are dropped; all three on fuzz_commands (the clamps);
     emit_model also timed on one 2 MiB bucket of the file encode (256
-    blocks), with ns a step;
+    blocks), with ns a step; repify held on the greedy commands and on
+    that bucket, each timed (rep_timing);
 17. e2e_enc_v1: encode_container(profile="v1", parser="greedy",
     engine="device") of the 8 MiB at 8 KiB blocks; every payload must
     decode through the host decoder native.decode_block and the
@@ -85,13 +87,18 @@ card and fails (nonzero exit, no result line) on anything wrong:
     blocks) and on 1 MiB of long matches at 8 KiB blocks, with ns a
     position and the modelled shares of its three steps (dp_steps);
     emit_model at the wide optimal encode's shape (T = 32768) against its
-    plain version, exact, and timed; then phase kernels_cover: the cover
+    plain version, exact, and timed; repify held and timed on the first
+    round's commands; then phase kernels_cover: the cover
     walk (greedy_cover and dp_cover, csrc/greedy_cover.cu) against its
     plain versions, exact, at every shape it runs (1024 x 8192, 245 x
     32768 with dp at C = 3, the global-scratch path at 128 KiB blocks),
     on 1 MiB of long matches, fuzz_opt and every fuzz_cover pattern (16 x
     4096, 1024 x 8192, 4 x 131072); each but the small fuzz sets timed,
-    with ns a command and resident CTAs an SM (cover_timing);
+    with ns a command and resident CTAs an SM (cover_timing); then phase
+    kernels_rep: repify (csrc/repify.cu) against its plain version, exact,
+    on every fuzz_rep pattern at 16 x 4096 and at 1024 x 8192 (timed,
+    with rep_model's runs), and on hostile and random6 segments longer
+    than the kernel's match masks reach (16 x 70000, 528 x 33000);
 20. e2e_enc_v1_opt: encode_container(parser="optimal", engine="device")
     of the 8 MiB at 8 KiB blocks, checked as 17; MB/s, the ratio and 17's
     greedy ratio;
@@ -176,6 +183,11 @@ WIDE_OPT_REPS = 3  # host-bound (plane batching), ~2 s a call
 BIG_COVER = dict(block_size=131072, bytes=1 << 20)  # dp_cover's global-scratch walk
 DP_RUNS_MAX_LENS = (2, 16, 17, 64, 264)  # fuzz_dp_runs: both sides of the short reach
 COVER_W = 32  # csrc/greedy_cover.cu: positions a segment, one mask word
+# csrc/repify.cu's S (segments a block), R (runs before the fallback) and
+# guess (run 0's entry table but in segment 0); check_rep holds them to the
+# kernel's nlzm_repify_scheme
+REP_S, REP_R = 64, 3
+REP_GUESS = (0, -1, -2, -3)
 DP_SHORT = 16  # dp_steps' model of csrc/dp_parse.cu's SHORT: the longest reach priced from slots
 # launches of one optimal-parse encode (nlzm_tpu/ops/encode_ops.py:708
 # _calibrated_parse, then the profile's encode); a file encode runs it per bucket
@@ -516,6 +528,152 @@ def cover_model(data, delta, length, n_valid, num_steps: int, cand=None, W: int 
         op_val[:ncmd, b] = cmd_val[b, at]
         op_val[ncmd:, b] = byte[b, min(end, N - 1)]
     return op_len, op_val
+
+
+def fuzz_rep(seed: int, B: int = 16, T: int = 4096, names=None) -> dict:
+    """Inputs of repify drawn from a seed, for the worst cases of
+    csrc/repify.cu's segmented replay, one (op_len, op_val) pair of [T, B]
+    int32 a pattern:
+    - "cycle5": every row a match over the cycle 1..5 (each block at its
+      own phase): from the start table, four hits a miss, a phase that
+      carries from each segment to the next; from the guess, every match
+      misses, so the speculation never catches up (the fallback);
+    - "rle": distance-1 matches (hits on slot 0), literals between;
+    - "cycle4": every row a match over a cycle of 4 fresh distances;
+    - "fresh": every row a match, every distance new;
+    - "random6": matches on 20% of rows, distances among 6 values (1..4
+      and two others), literals elsewhere;
+    - "literals", "dead": no match, op_len 0 or -1 everywhere;
+    - "hostile": dead rows (-1 and below) in the middle, literals, and
+      matches of distances <= 0, INT_MIN, INT_MAX, the guess's values and
+      1..6;
+    - "last_match": one match a block, its last row;
+    - "ragged": hostile at T - 27 rows (no multiple of 32) and B - 3
+      blocks; "one_row": hostile at T = 1, B - 1 blocks.
+    names: the patterns to return (default all)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    shape = (T, B)
+    t = np.arange(T)[:, None]
+    b = np.arange(B)[None, :]
+    length = rng.integers(2, 300, shape)
+    byte = rng.integers(0, 256, shape)
+    i32 = lambda a: np.asarray(a, np.int32)
+
+    def mixed(p_match, dist):
+        is_m = rng.random(shape) < p_match
+        return np.where(is_m, length, 0), np.where(is_m, dist, byte)
+
+    def hostile(T, B):
+        kind = rng.choice(4, (T, B), p=[0.2, 0.2, 0.3, 0.3])
+        op_len = np.select([kind == 0, kind == 1], [rng.integers(-9, 0, (T, B)), 0],
+                           rng.integers(1, 300, (T, B)))
+        odd = np.array([*REP_GUESS, -7, np.iinfo(np.int32).min, np.iinfo(np.int32).max])
+        dist = np.where(kind == 2, rng.choice(odd, (T, B)), rng.integers(1, 7, (T, B)))
+        return i32(op_len), i32(np.where(op_len == 0, rng.integers(0, 256, (T, B)), dist))
+
+    six = np.concatenate([np.arange(1, 5), rng.integers(5, 1 << 20, 2)])
+    four = rng.integers(5, 1 << 20, (4, B))
+    last = np.zeros(shape, np.int64)
+    last[-1] = rng.integers(2, 300, B)
+    make = {
+        "cycle5": lambda: (length, 1 + (t + b) % 5),
+        "rle": lambda: mixed(0.6, 1),
+        "cycle4": lambda: (length, np.take_along_axis(four, np.broadcast_to(t % 4, shape), 0)),
+        "fresh": lambda: (length, 5 + t * B + b),
+        "random6": lambda: mixed(0.2, six[rng.integers(0, 6, shape)]),
+        "literals": lambda: (np.zeros(shape, np.int64), byte),
+        "dead": lambda: (np.full(shape, -1), byte),
+        "hostile": lambda: hostile(T, B),
+        "last_match": lambda: (last, np.where(last > 0, 1 + b % 6, byte)),
+        "ragged": lambda: hostile(T - 27, B - 3),
+        "one_row": lambda: hostile(1, B - 1),
+    }
+    return {k: tuple(i32(a) for a in make[k]()) for k in (names or make)}
+
+
+def rep_model(op_len, op_val, S: int = REP_S, R: int = REP_R):
+    """A numpy model of csrc/repify.cu's segmented replay, S segments a
+    block of ceil(T / S) rows, at most R runs. Run 0 walks each segment
+    from (1, 2, 3, 4) (segment 0) or REP_GUESS and keeps its summary (k =
+    min(inserts, 4), exit table); each later run composes the summaries
+    before a segment into its entry, walks again (writing) a segment that
+    has not written yet or whose entry changed, and stops the block when
+    no summary (k and its first k slots) changed; a block still changed
+    after R runs is replayed row by row from the segment after the first
+    changed one, f, whose exit table is exact. Returns (op_rep [T, B]
+    int32, the runs each block took: 2..R, or R + 1 for R runs and the
+    fallback)."""
+    import numpy as np
+
+    L, V = np.asarray(op_len, np.int64), np.asarray(op_val, np.int64)
+    T, B = L.shape
+    seg = -(-T // S)
+    Ls = np.full((S * seg, B), -1, np.int64)
+    Vs = np.zeros((S * seg, B), np.int64)
+    Ls[:T], Vs[:T] = L, V
+    Ls, Vs = Ls.reshape(S, seg, B), Vs.reshape(S, seg, B)
+    out = np.full((S, seg, B), -1, np.int64)
+    q = np.arange(4)
+
+    def step(tab, m, v):
+        """One row on tables [..., 4]: (slot or -1, inserted, new table)."""
+        eq = tab == v[..., None]
+        hit = eq.any(-1)
+        ins = m & ~hit
+        pushed = np.concatenate([v[..., None], tab[..., :3]], -1)
+        return np.where(m & hit, eq.argmax(-1), -1), ins, np.where(ins[..., None], pushed, tab)
+
+    def walk(tab, write):
+        k = np.zeros((S, B), np.int64)
+        for j in range(seg):
+            slot, ins, tab = step(tab, Ls[:, j] > 0, Vs[:, j])
+            out[:, j] = np.where(write, slot, out[:, j])
+            k += ins
+        return tab, np.minimum(k, 4)
+
+    def entries(x, k):
+        e = np.empty((S, B, 4), np.int64)
+        cur = np.broadcast_to(np.arange(1, 5), (B, 4))
+        for s in range(S):
+            e[s] = cur
+            ks = k[s][:, None]  # cur <- x[0:k] ++ cur[0:4 - k]
+            cur = np.where(q < ks, x[s], np.take_along_axis(cur, np.clip(q - ks, 0, 3), 1))
+        return e
+
+    entry = np.broadcast_to(np.asarray(REP_GUESS, np.int64), (S, B, 4)).copy()
+    entry[0] = np.arange(1, 5)
+    x, k = walk(entry, False)
+    written = np.zeros((S, B), bool)
+    done = np.zeros(B, bool)
+    runs = np.ones(B, np.int64)
+    first = np.full(B, S)
+    for _ in range(1, R):
+        ne = entries(x, k)
+        rerun = (~written | (ne != entry).any(-1)) & ~done
+        entry = np.where(rerun[..., None], ne, entry)
+        x2, k2 = walk(entry.copy(), rerun)
+        changed = rerun & ((k2 != k) | ((x2 != x) & (q < k2[..., None])).any(-1))
+        x, k = np.where(rerun[..., None], x2, x), np.where(rerun, k2, k)
+        written |= rerun
+        runs[~done] += 1
+        first = np.where(changed.any(0), changed.argmax(0), S)
+        done |= first == S
+        if done.all():
+            break
+    op_rep = out.reshape(S * seg, B)[:T]
+    fb = np.nonzero(~done)[0]
+    if len(fb):
+        runs[fb] = R + 1
+        start = (first[fb] + 1) * seg
+        tab = x[first[fb], fb]
+        for r in range(int(start.min()), T):
+            act = r >= start
+            slot, _, new = step(tab, act & (L[r, fb] > 0), V[r, fb])
+            op_rep[r, fb] = np.where(act, slot, op_rep[r, fb])
+            tab = np.where(act[:, None], new, tab)
+    return op_rep.astype(np.int32), runs
 
 
 def emit(obj) -> None:
@@ -1043,7 +1201,8 @@ def check_kernels_enc(tally: Tally, data: bytes, device):
         "greedy_cover", lambda: eo.greedy_cover(*gc), lambda: eo.greedy_cover_ref(*gc),
         reps_plain=1, work=cover_work("greedy_cover", gc[:4], op_len, op_val))
     tally.hold("repify", lambda: eo.repify(op_len, op_val), lambda: eo.repify_ref(op_len, op_val),
-               reps_plain=1, work=(3 * nbytes(op_len), 12 * T * B))
+               reps_plain=1, work=rep_work(op_len))
+    rep_wide = rep_timing(op_len, op_val)
 
     batched = wide.batch_plane_arrays(*bench_commands(data))[1]
     priors = wide.build_priors_from_batched(batched)
@@ -1075,7 +1234,7 @@ def check_kernels_enc(tally: Tally, data: bytes, device):
                    lambda: we.plane_encode_ref(*args4), timed=False)
     finally:
         wide.PLANES = planes
-    return {"blocks": B, "commands": n_cmd, "plane_steps": steps}
+    return {"blocks": B, "commands": n_cmd, "plane_steps": steps, "repify": rep_wide}
 
 
 def run_encode(tally: Tally, data: bytes, device, card: str, ratios: dict):
@@ -1157,7 +1316,10 @@ def check_kernels_v1enc(tally: Tally, data: bytes, device):
     bits_cap = ((N + 64 + 255) // 256) * 256
     delta, mlen = eo.find_matches(dt, nvt, (1 << V1_ENC_HIST_BITS) - 1)
     op_len, op_val = eo.greedy_cover(dt, delta, mlen, nvt, T)
-    cmds = (op_len, op_val, eo.repify(op_len, op_val))
+    op_rep = tally.hold("repify", lambda: eo.repify(op_len, op_val),
+                        lambda: eo.repify_ref(op_len, op_val), timed=False)
+    rep_v1 = rep_timing(op_len, op_val)
+    cmds = (op_len, op_val, op_rep)
     del delta, mlen
 
     spans, fields, nops = eo.emit_model(*cmds)  # for the work count
@@ -1184,6 +1346,9 @@ def check_kernels_v1enc(tally: Tally, data: bytes, device):
     # one 2 MiB bucket of the file encode: its first 256 blocks
     nb = STREAM_BUCKET // N
     fcmds = tuple(c[:, :nb].contiguous() for c in cmds)
+    fl, fv = fcmds[:2]
+    tally.hold("repify", lambda: eo.repify(fl, fv), lambda: eo.repify_ref(fl, fv), timed=False)
+    rep_bucket = rep_timing(fl, fv)
     fb_ms = timed_mean(lambda: eo.emit_model(*fcmds), KERNEL_REPS)
     file_bucket = {"blocks": nb, "steps": T, "ms": fb_ms, "ns_per_step": fb_ms * 1e6 / T,
                    "max_cmds": int((fcmds[0] >= 0).sum(0).max())}
@@ -1200,7 +1365,8 @@ def check_kernels_v1enc(tally: Tally, data: bytes, device):
             "bits_cap": bits_cap, "small_cap": cap,
             "max_cmds": int((op_len >= 0).sum(0).max()),
             "emit_model_ns_per_step": tally.k["emit_model"]["ms"] * 1e6 / T,
-            "emit_model_file_bucket": file_bucket}
+            "emit_model_file_bucket": file_bucket, "repify_1024x8192": rep_v1,
+            "repify_file_bucket": rep_bucket}
 
 
 def run_v1_encode(tally: Tally, data: bytes, device, card: str, ratios: dict):
@@ -1346,7 +1512,9 @@ def check_kernels_opt(tally: Tally, data: bytes, device):
     op_len, op_val = tally.hold(
         "dp_cover", lambda: eo.dp_cover(*cov), lambda: eo.dp_cover_ref(*cov), reps_plain=1,
         work=cover_work("dp_cover", cov[:5], op_len, op_val))
-    op_rep = eo.repify(op_len, op_val)
+    op_rep = tally.hold("repify", lambda: eo.repify(op_len, op_val),
+                        lambda: eo.repify_ref(op_len, op_val), timed=False)
+    rep_opt = rep_timing(op_len, op_val)
     spans, _, _ = eo.emit_model(op_len, op_val, op_rep)
     mc = (spans, op_len, op_val, op_rep)
     # measure_costs: ~8 operations a row (loads, family tests), ~4 a span
@@ -1423,7 +1591,8 @@ def check_kernels_opt(tally: Tally, data: bytes, device):
                lambda: eo.measure_costs_ref(*fz["commands"]), timed=False)
     return {"blocks": B, "steps": T, "commands_round1": n_cmd,
             "big_cover": dict(blocks=bt.shape[0], **BIG_COVER), "emit_model_wide": wide,
-            "dp_parse_8k": dp_8k, "dp_parse_wide": dp_wide, "dp_parse_long_match": dp_long}
+            "dp_parse_8k": dp_8k, "dp_parse_wide": dp_wide, "dp_parse_long_match": dp_long,
+            "repify_opt_round1": rep_opt}
 
 
 def cover_work(name: str, args, op_len, op_val):
@@ -1479,6 +1648,86 @@ def cover_timing(name: str, args, T: int, out) -> dict:
                 max_cmds=longest, ms=ms, ns_per_command=ms * 1e6 / max(longest, 1),
                 ctas_per_sm=cover_ctas_per_sm(args[0].shape[1], name == "dp_cover"),
                 bound_ms=b_ms, bound_by=b_by)
+
+
+def rep_work(op_len):
+    """repify's (bytes, ops): op_len read once, op_rep written once, and
+    op_val only where a match needs it: one 32-byte sector (8 adjacent
+    words of the [T, B] array) for each sector that holds a match; ~2
+    operations a row (test, store) and ~12 a match (four compares, the
+    slot, the push)."""
+    import torch
+
+    at = torch.nonzero(op_len.flatten() > 0).flatten()
+    sectors = int(torch.unique_consecutive(at // 8).numel())
+    return 2 * nbytes(op_len) + 32 * sectors, 2 * op_len.numel() + 12 * int(at.numel())
+
+
+def rep_runs(op_len, op_val) -> dict:
+    """rep_model's histogram on these commands, on the host: {runs: blocks},
+    "fallback" for REP_R runs and then the fallback."""
+    import numpy as np
+
+    _, runs = rep_model(op_len.cpu().numpy(), op_val.cpu().numpy())
+    hist = np.bincount(runs, minlength=REP_R + 2)
+    out = {str(r): int(hist[r]) for r in range(1, REP_R + 1) if hist[r]}
+    if hist[REP_R + 1]:
+        out["fallback"] = int(hist[REP_R + 1])
+    return out
+
+
+def rep_timing(op_len, op_val) -> dict:
+    """repify on these commands: CUDA-event mean, ns a match of the block
+    with the most matches and ns a row, its bound (rep_work) and
+    rep_model's runs."""
+    import torch
+
+    from nlzm_tpu_torch.ops import encode_ops as eo
+
+    ms = timed_mean(lambda: eo.repify(op_len, op_val), KERNEL_REPS)
+    T, B = op_len.shape
+    matches = (op_len > 0).sum(0)
+    longest = int(matches.max()) if B else 0
+    b_ms, b_by = bound(*rep_work(op_len))
+    return dict(blocks=B, rows=T, matches=int(matches.sum()), max_matches=longest, ms=ms,
+                ns_per_match=ms * 1e6 / max(longest, 1), ns_per_row=ms * 1e6 / T,
+                bound_ms=b_ms, bound_by=b_by, runs=rep_runs(op_len, op_val))
+
+
+def check_rep(tally: Tally, device) -> dict:
+    """Phase kernels_rep: REP_S, REP_R and REP_GUESS held to the kernel's
+    own (nlzm_repify_scheme); repify (csrc/repify.cu) against its plain
+    version, exact, on every fuzz_rep pattern at 16 x 4096 and at 1024 x
+    8192, the second timed (rep_timing); then, untimed, hostile and
+    random6 with segments longer than the kernel's match masks reach, at
+    each of its CTA widths (16 x 70000: 4 blocks a CTA, 1094 rows a
+    segment; 528 x 33000: 8 blocks a CTA, 516 rows). Returns the phase's
+    fields."""
+    import ctypes
+
+    import torch
+
+    from nlzm_tpu_torch import _build
+    from nlzm_tpu_torch.ops import encode_ops as eo
+
+    scheme = (ctypes.c_int * 6)()
+    _build.entry("repify", "nlzm_repify_scheme", 1, 0)(ctypes.addressof(scheme), 0, None)
+    if tuple(scheme) != (REP_S, REP_R, *REP_GUESS):
+        raise AssertionError(f"csrc/repify.cu's S, R, guess {tuple(scheme)} are not "
+                             f"REP_S, REP_R, REP_GUESS {(REP_S, REP_R, *REP_GUESS)}")
+    worst = {}
+    for B, T, timed, names in ((16, 4096, False, None), (1024, V1_ENC["block_size"], True, None),
+                               (16, 70000, False, ("hostile", "random6")),
+                               (528, 33000, False, ("hostile", "random6"))):
+        for pat, cmds in fuzz_rep(7, B, T, names).items():
+            ol, ov = (torch.as_tensor(a, device=device) for a in cmds)
+            tally.hold("repify", lambda: eo.repify(ol, ov), lambda: eo.repify_ref(ol, ov),
+                       timed=False)
+            if timed:
+                worst[pat] = rep_timing(ol, ov)
+            del ol, ov
+    return {"worst_cases": worst, "worst_cases_shape": "fuzz_rep(7) patterns at 1024 x 8192 "
+            "(ragged 8165 x 1021, one_row 1 x 1023); also held at 16 x 4096"}
 
 
 def check_cover(tally: Tally, corpus: bytes, device) -> dict:
@@ -1978,6 +2227,12 @@ def main() -> int:
     emit({"phase": "kernels_cover", "ok": True, **cover, "seconds": time.perf_counter() - t0,
           "timing": f"CUDA events, mean of {KERNEL_REPS} back-to-back calls; ns a command of "
                     f"the longest block's chain; CTAs an SM from the occupancy calculator",
+          "card": card})
+    t0 = time.perf_counter()
+    rep = check_rep(tally, "cuda")
+    emit({"phase": "kernels_rep", "ok": True, **rep, "seconds": time.perf_counter() - t0,
+          "timing": f"CUDA events, mean of {KERNEL_REPS} back-to-back calls; ns a match of the "
+                    f"block with the most matches; runs from rep_model on the host",
           "card": card})
     plane_launches, plane_shape = check_plane_decode(tally, wide_c, "cuda")
     emit({"phase": "kernels_plane_decode", "ok": True, **plane_shape,

@@ -30,18 +30,24 @@ import chip_smoke as cs
 ENTRIES = (("nlzm_greedy_cover", 8, 3), ("nlzm_dp_cover", 9, 4))
 
 
-def build_other(src_dir: Path):
+def build_other(src_dir: Path, source: str = "greedy_cover", entries=ENTRIES, defines=(),
+                tag: str = "other"):
+    """The entries ((symbol, pointers, ints), ...) of src_dir/<source>.cu,
+    built apart (as lib<source>_<tag>.so) with the port's flags and the
+    macro definitions `defines` ("NAME=VALUE", ...): ({symbol: ctypes
+    function}, ptxas's register lines)."""
     from nlzm_tpu_torch import _build
 
-    out = Path(__file__).resolve().parent / ".build" / "cover_compare" / "libgreedy_cover_other.so"
+    out = Path(__file__).resolve().parent / ".build" / "compare" / f"lib{source}_{tag}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
-    r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
-                        str(src_dir / "greedy_cover.cu")], capture_output=True, text=True)
+    r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, *(f"-D{d}" for d in defines),
+                        "-o", str(out), str(src_dir / f"{source}.cu")],
+                       capture_output=True, text=True)
     if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src_dir}/greedy_cover.cu:\n{r.stdout}{r.stderr}")
+        raise RuntimeError(f"nvcc failed on {src_dir}/{source}.cu:\n{r.stdout}{r.stderr}")
     lib = ctypes.CDLL(str(out))
     fns = {}
-    for sym, n_ptr, n_int in ENTRIES:
+    for sym, n_ptr, n_int in entries:
         fn = getattr(lib, sym)
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * (n_int + 1) + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -50,15 +56,15 @@ def build_other(src_dir: Path):
 
 
 @contextmanager
-def using(fns):
-    """The port's cover wrappers launch the entries `fns` (None: the port's)."""
+def using(fns, source: str = "greedy_cover"):
+    """The port's wrappers of kernel library `source` launch the entries
+    `fns` ({symbol: function}; None: the port's own)."""
     from nlzm_tpu_torch import _build
 
-    keys = [("greedy_cover", sym) for sym, _, _ in ENTRIES]
+    keys = [(source, sym) for sym in fns or ()]
     saved = {k: _build._libs.get(k) for k in keys}
-    if fns is not None:
-        for k in keys:
-            _build._libs[k] = fns[k[1]]
+    for k in keys:
+        _build._libs[k] = fns[k[1]]
     try:
         yield
     finally:

@@ -523,23 +523,33 @@ measure_costs.launches = 0
 
 
 def repify_ref(op_len, op_val):
-    """Plain version of repify: one loop iteration per row up to the last
-    row that holds a match; every later row is -1."""
+    """Plain version of repify: every block's matches gathered in row
+    order, then one loop iteration per match rank k, over the k-th match
+    of every block at once; the slots scattered back to the match rows,
+    every other row -1."""
     T, B = op_len.shape
     dev = op_len.device
     op_rep = torch.full((T, B), -1, dtype=torch.int32, device=dev)
-    rows = torch.nonzero((op_len > 0).any(dim=1))
-    last = int(rows[-1]) + 1 if len(rows) else 0
+    is_match = op_len > 0
+    counts = is_match.sum(dim=0)
+    K = int(counts.max()) if T and B else 0
+    if K == 0:
+        return op_rep
+    # rows [K, B]: each block's match rows in order, then rows that are not
+    # matches (their slot stays -1, so scattering it back is harmless)
+    rows = torch.argsort((~is_match).to(torch.int8), dim=0, stable=True)[:K]
+    vals = torch.gather(op_val, 0, rows).long()
+    live = torch.arange(K, device=dev)[:, None] < counts[None, :]
+    slots = torch.full((K, B), -1, dtype=torch.int32, device=dev)
     tab = torch.arange(1, 5, dtype=torch.long, device=dev).expand(B, 4).clone()
-    for t in range(last):
-        is_match = op_len[t] > 0
-        v = op_val[t].long()
+    for k in range(K):
+        v = vals[k]
         eq = tab == v[:, None]
-        present = is_match & eq.any(dim=1)
-        op_rep[t] = torch.where(present, eq.int().argmax(dim=1), -1).to(torch.int32)
-        insert = is_match & ~present
+        present = eq.any(dim=1)
+        slots[k] = torch.where(live[k] & present, eq.int().argmax(dim=1), -1)
+        insert = live[k] & ~present
         tab = torch.where(insert[:, None], torch.cat([v[:, None], tab[:, :3]], dim=1), tab)
-    return op_rep
+    return op_rep.scatter_(0, rows, slots)
 
 
 def repify(op_len, op_val):
