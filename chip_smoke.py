@@ -67,7 +67,9 @@ card and fails (nonzero exit, no result line) on anything wrong:
     writes are dropped; all three on fuzz_commands (the clamps);
     emit_model also timed on one 2 MiB bucket of the file encode (256
     blocks), with ns a step; repify held on the greedy commands and on
-    that bucket, each timed (rep_timing);
+    that bucket, each timed (rep_timing); rans_backward held and timed
+    on that bucket too, and timed on the greedy spans with ns a step of
+    the longest chain, its registers, CTAs an SM and waves (rans_timing);
 17. e2e_enc_v1: encode_container(profile="v1", parser="greedy",
     engine="device") of the 8 MiB at 8 KiB blocks; every payload must
     decode through the host decoder native.decode_block and the
@@ -88,9 +90,10 @@ card and fails (nonzero exit, no result line) on anything wrong:
     position and the modelled shares of its three steps (dp_steps);
     emit_model at the wide optimal encode's shape (T = 32768) against its
     plain version, exact, and timed; repify held and timed on the first
-    round's commands; then phase kernels_cover: the cover
-    walk (greedy_cover and dp_cover, csrc/greedy_cover.cu) against its
-    plain versions, exact, at every shape it runs (1024 x 8192, 245 x
+    round's commands; rans_backward held and timed (rans_timing) on the
+    spans of the optimal parse's last round; then phase kernels_cover:
+    the cover walk (greedy_cover and dp_cover, csrc/greedy_cover.cu)
+    against its plain versions, exact, at every shape it runs (1024 x 8192, 245 x
     32768 with dp at C = 3, the global-scratch path at 128 KiB blocks),
     on 1 MiB of long matches, fuzz_opt and every fuzz_cover pattern (16 x
     4096, 1024 x 8192, 4 x 131072); each but the small fuzz sets timed,
@@ -98,7 +101,13 @@ card and fails (nonzero exit, no result line) on anything wrong:
     kernels_rep: repify (csrc/repify.cu) against its plain version, exact,
     on every fuzz_rep pattern at 16 x 4096 and at 1024 x 8192 (timed,
     with rep_model's runs), and on hostile and random6 segments longer
-    than the kernel's match masks reach (16 x 70000, 528 x 33000);
+    than the kernel's match masks reach (16 x 70000, 528 x 33000); then
+    phase kernels_rans: rans_backward's span records (a and the magic)
+    for every f in 1..65535 against rans_magic's, exact, and the kernel
+    against its plain version, exact, on every fuzz_spans pattern at 16 x
+    4096 (at its frame cap and at caps 1024, 101 and 37) and on dense spans
+    at 1024 x 8192, each timed (rans_timing, with the kernel's device time
+    from torch.profiler);
 20. e2e_enc_v1_opt: encode_container(parser="optimal", engine="device")
     of the 8 MiB at 8 KiB blocks, checked as 17; MB/s, the ratio and 17's
     greedy ratio;
@@ -189,6 +198,8 @@ COVER_W = 32  # csrc/greedy_cover.cu: positions a segment, one mask word
 REP_S, REP_R = 64, 3
 REP_GUESS = (0, -1, -2, -3)
 DP_SHORT = 16  # dp_steps' model of csrc/dp_parse.cu's SHORT: the longest reach priced from slots
+RANS_R = 96  # csrc/rans_backward.cu's R: rows a tile (rans_model)
+RANS_NO_PAIR = 0x10000  # a span's code when it emits no pair
 # launches of one optimal-parse encode (nlzm_tpu/ops/encode_ops.py:708
 # _calibrated_parse, then the profile's encode); a file encode runs it per bucket
 V1_OPT_LAUNCHES = dict(find_matches=1, dp_parse=3, dp_cover=3, repify=3, emit_model=3,
@@ -674,6 +685,186 @@ def rep_model(op_len, op_val, S: int = REP_S, R: int = REP_R):
             op_rep[r, fb] = np.where(act, slot, op_rep[r, fb])
             tab = np.where(act[:, None], new, tab)
     return op_rep.astype(np.int32), runs
+
+
+def fuzz_spans(seed: int, T: int = 4096, B: int = 16, names=None) -> dict:
+    """Inputs of rans_backward drawn from a seed, for the worst cases of
+    csrc/rans_backward.cu, one [T, B, 6] int32 array of spans ((freq << 16)
+    | start, u32 bits; 0 = no span) a pattern:
+    - "dense": all six slots of every row, freq 1..2^14 - 1, start within
+      the 2^14 scale: the longest chain (6T / 4 steps);
+    - "f14": freq 2^14 (the threshold wraps to 0: every span renorms) on
+      half the slots;
+    - "f1": freq 0 or 1 (f = 1: x grows until 2^18 before each renorm),
+      any start, nonzero spans only, half the slots;
+    - "wide_f": freq in (2^14, 2^16) with 2^15 (threshold 0) and 65535
+      among them, start 0xFFFF (the new state wraps in u32);
+    - "random": random u32 spans, a third of them 0;
+    - "last_row": spans only in the last row;
+    - "empty_full": blocks with no span beside blocks with every slot;
+    - "mod4": block b holds 4m + (b mod 4) spans at random places;
+    - "every_f": dense, freq running through 1..65535 in order (every
+      magic the kernel works out);
+    - "ragged": random at T - 37 rows (no multiple of 128) and B - 3
+      blocks; "one_row": random at T = 1, B - 1 blocks.
+    names: the patterns to return (default all)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    shape = (T, B, 6)
+    u32 = lambda a: np.ascontiguousarray(np.asarray(a, np.uint64).astype(np.uint32).view(np.int32))
+
+    def span(freq, start):
+        return (np.asarray(freq, np.uint64) << np.uint64(16)) | np.asarray(start, np.uint64)
+
+    def scaled(sh):
+        freq = rng.integers(1, 1 << 14, sh)
+        return span(freq, rng.integers(0, (1 << 14) - freq + 1, sh))
+
+    def half(a, sh):
+        return np.where(rng.random(sh) < 0.5, a, 0)
+
+    def random(sh):
+        v = rng.integers(0, 1 << 32, sh, dtype=np.uint64)
+        return np.where(rng.random(sh) < 1 / 3, 0, v)
+
+    def f1():
+        freq = rng.integers(0, 2, shape)
+        start = rng.integers(freq == 0, 1 << 16, shape)  # freq 0: a start of 1 or more
+        return half(span(freq, start), shape)
+
+    def wide_f():
+        freq = rng.integers((1 << 14) + 1, 1 << 16, shape)
+        pick = rng.random(shape)
+        freq = np.where(pick < 0.2, 65535, np.where(pick < 0.3, 1 << 15, freq))
+        return span(freq, 0xFFFF)
+
+    def last_row():
+        a = np.zeros(shape, np.uint64)
+        a[-1] = half(scaled((B, 6)), (B, 6))
+        a[-1, :, 0] = scaled(B)  # at least one span a block
+        return a
+
+    def empty_full():
+        a = scaled(shape)
+        a[:, ::2] = 0
+        return a
+
+    def mod4():
+        a = np.zeros((B, T * 6), np.uint64)
+        for b in range(B):
+            k = min(4 * int(rng.integers(0, T * 6 // 8 + 1)) + b % 4, T * 6)
+            at = rng.choice(T * 6, k, replace=False)
+            a[b, at] = scaled(k)
+        return a.reshape(B, T, 6).transpose(1, 0, 2)
+
+    def every_f():
+        n = T * B * 6
+        freq = (np.arange(n) % 65535 + 1).reshape(B, T, 6).transpose(1, 0, 2)
+        return span(freq, rng.integers(0, 1 << 16, shape))
+
+    make = {
+        "dense": lambda: scaled(shape),
+        "f14": lambda: half(span(np.full(shape, 1 << 14), rng.integers(0, 1 << 16, shape)), shape),
+        "f1": f1,
+        "wide_f": wide_f,
+        "random": lambda: random(shape),
+        "last_row": last_row,
+        "empty_full": empty_full,
+        "mod4": mod4,
+        "every_f": every_f,
+        "ragged": lambda: random((T - 37, B - 3, 6)),
+        "one_row": lambda: random((1, B - 1, 6)),
+    }
+    return {k: u32(make[k]()) for k in (names or make)}
+
+
+def rans_magic(f):
+    """The magic of csrc/rans_backward.cu's span records for each f (1 <= f
+    < 2^16), uint64 numpy: the (high, low) words of (ceil(2^48 / f) << 16)
+    mod 2^64, 0 at f = 1, as the kernel works it out: m = the double 1 / f
+    (correctly rounded) times 2^48, truncated (at most 2 below), then
+    raised by e = m * f - 2^48 (1 if e < 0, 2 if e < -f)."""
+    import numpy as np
+
+    f = np.asarray(f, np.uint64)
+    m = ((1.0 / f.astype(np.float64)) * 2.0**48).astype(np.uint64)
+    e = (m * f).astype(np.int64) - (1 << 48)
+    m = m + (e < 0).astype(np.uint64) + (e < -f.astype(np.int64)).astype(np.uint64)
+    m = np.where(f == 1, np.uint64(0), m)
+    return m >> np.uint64(16), (m << np.uint64(16)) & np.uint64(0xFFFFFFFF)
+
+
+def recip_div(x1, f):
+    """floor(x1 / f) for u32 x1 and 1 <= f < 2^16 (broadcast), uint64 numpy,
+    as csrc/rans_backward.cu's step gets it: the high word of x1 *
+    (ceil(2^48 / f) << 16), t = hi32(x1 * low), q = hi32(x1 * high + t),
+    from rans_magic's words. At f = 1 the magic is 0 and the kernel folds
+    the quotient, x1, into its multiplier a = 2^14."""
+    import numpy as np
+
+    x1, f = np.asarray(x1, np.uint64), np.asarray(f, np.uint64)
+    hi, lo = rans_magic(f)
+    sh = np.uint64(32)
+    return np.where(f == 1, x1, (x1 * hi + ((x1 * lo) >> sh)) >> sh)
+
+
+def rans_model(spans, cap: int, R: int = RANS_R):
+    """A numpy model of csrc/rans_backward.cu's scheme. Tiles of R rows from
+    the last back; a block's nonzero spans of a tile compacted in backward
+    order (row, then slot, descending), r the backward index, label r & 3
+    a chain from 1 << 16; each span's quantities worked out ahead of its
+    chain: f = max(freq, 1), thr = (f << 18) mod 2^32, c = 2^14 - f, a =
+    2^14 at f = 1 (else 1) and its magic (rans_magic); the step over =
+    x >= thr, x1 = over ? x >> 16 : x, x = q * c + x1 * a + start (mod
+    2^32) with q from the magic's two multiplies (recip_div); each tile's
+    pairs harvested in backward order; the seeds put in forward lane order,
+    lane L = label (K - 1 - L) & 3, once K is known. Returns (stream [B,
+    cap] uint8, rans_bytes [B] int32) as rans_backward."""
+    import numpy as np
+
+    sp = np.asarray(spans).view(np.uint32).astype(np.uint64)
+    T, B, _ = sp.shape
+    M, sh = np.uint64(0xFFFFFFFF), np.uint64(32)
+    x = np.full((B, 4), 1 << 16, np.uint64)
+    K = np.zeros(B, np.int64)
+    pairs = [[] for _ in range(B)]  # backward order
+    rows = np.arange(B)[:, None]
+    for i in range(-(-T // R)):
+        tile = sp[max(T - (i + 1) * R, 0) : T - i * R][::-1, :, ::-1]
+        tile = tile.transpose(1, 0, 2).reshape(B, -1)
+        live = tile != 0
+        n = live.sum(1)
+        rec = np.take_along_axis(tile, np.argsort(~live, axis=1, kind="stable"), 1)
+        f = np.maximum(rec >> np.uint64(16), np.uint64(1))
+        start = rec & np.uint64(0xFFFF)
+        hi, lo = rans_magic(f)
+        thr, c = (f << np.uint64(18)) & M, (np.uint64(0x4000) - f) & M
+        a = np.where(f == 1, np.uint64(0x4000), np.uint64(1))
+        code = np.full(rec.shape, RANS_NO_PAIR, np.uint64)
+        j = (np.arange(4)[None, :] - K[:, None]) & 3  # each label's first span of the tile
+        steps = (n[:, None] - j + 3) // 4
+        for s in range(int(steps.max(initial=0))):
+            act = s < steps
+            k = np.minimum(j + 4 * s, rec.shape[1] - 1)
+            at = lambda v: v[rows, k]
+            over = x >= at(thr)
+            x1 = np.where(over, x >> np.uint64(16), x)
+            q = (x1 * at(hi) + ((x1 * at(lo)) >> sh)) >> sh
+            code[np.broadcast_to(rows, k.shape)[act], k[act]] = np.where(
+                over, x & np.uint64(0xFFFF), RANS_NO_PAIR)[act]
+            x = np.where(act, (q * at(c) + x1 * at(a) + at(start)) & M, x)
+        for b in range(B):
+            cb = code[b, : n[b]]
+            pairs[b].extend(int(v) for v in cb[cb != RANS_NO_PAIR])
+        K += n
+    stream = np.zeros((B, cap), np.uint8)
+    for b in range(B):
+        seeds = (int(x[b, (K[b] - 1 - L) & 3]).to_bytes(4, "little") for L in range(4))
+        body = b"".join(seeds) + b"".join(v.to_bytes(2, "big") for v in reversed(pairs[b]))
+        m = min(cap, len(body))
+        stream[b, :m] = np.frombuffer(body[:m], np.uint8)
+    return stream, np.asarray([16 + 2 * len(p) for p in pairs], np.int32)
 
 
 def emit(obj) -> None:
@@ -1312,7 +1503,7 @@ def check_kernels_v1enc(tally: Tally, data: bytes, device):
     arr, nv = eo._blocks_arrays(data, N)
     dt, nvt = torch.as_tensor(arr, device=device), torch.as_tensor(nv, device=device)
     B, T = dt.shape[0], (N + 255) // 256 * 256
-    rans_cap = ((3 * N + 64 + 255) // 256) * 256  # encode_blocks_device's caps
+    rans_cap = rans_frame_cap(N)  # encode_blocks_device's caps
     bits_cap = ((N + 64 + 255) // 256) * 256
     delta, mlen = eo.find_matches(dt, nvt, (1 << V1_ENC_HIST_BITS) - 1)
     op_len, op_val = eo.greedy_cover(dt, delta, mlen, nvt, T)
@@ -1330,11 +1521,11 @@ def check_kernels_v1enc(tally: Tally, data: bytes, device):
     spans, fields, nops = tally.hold(
         "emit_model", lambda: eo.emit_model(*cmds), lambda: eo.emit_model_ref(*cmds),
         reps_plain=1, work=(nbytes(*cmds, spans, *fields, nops), 64 * n_cmd + 68 * n_span))
-    # rans_backward: ~30 a span (u32 division and remainder, renorm, the
-    # scans); bits_forward: ~20 a step (masks, scan, two ORs)
+    # rans_backward: rans_work; bits_forward: ~20 a step (masks, scan, two ORs)
     tally.hold("rans_backward", lambda: eo.rans_backward(spans, rans_cap),
                lambda: eo.rans_backward_ref(spans, rans_cap), reps_plain=1,
-               work=(nbytes(spans) + B * (rans_cap + 4), 30 * n_span))
+               work=rans_work(spans, rans_cap))
+    rans_v1 = rans_timing(spans, rans_cap)
     tally.hold("bits_forward", lambda: eo.bits_forward(fields, bits_cap),
                lambda: eo.bits_forward_ref(fields, bits_cap), reps_plain=1,
                work=(nbytes(*fields) + B * (bits_cap + 4), 20 * T * B))
@@ -1352,6 +1543,10 @@ def check_kernels_v1enc(tally: Tally, data: bytes, device):
     fb_ms = timed_mean(lambda: eo.emit_model(*fcmds), KERNEL_REPS)
     file_bucket = {"blocks": nb, "steps": T, "ms": fb_ms, "ns_per_step": fb_ms * 1e6 / T,
                    "max_cmds": int((fcmds[0] >= 0).sum(0).max())}
+    fsp = spans[:, :nb].contiguous()
+    tally.hold("rans_backward", lambda: eo.rans_backward(fsp, rans_cap),
+               lambda: eo.rans_backward_ref(fsp, rans_cap), timed=False)
+    rans_bucket = rans_timing(fsp, rans_cap)
     # the clamps, on commands no parse gives (untimed)
     fz = tuple(torch.as_tensor(a, device=device) for a in fuzz_commands(5))
     fspans, ffields, _ = tally.hold("emit_model", lambda: eo.emit_model(*fz),
@@ -1366,7 +1561,8 @@ def check_kernels_v1enc(tally: Tally, data: bytes, device):
             "max_cmds": int((op_len >= 0).sum(0).max()),
             "emit_model_ns_per_step": tally.k["emit_model"]["ms"] * 1e6 / T,
             "emit_model_file_bucket": file_bucket, "repify_1024x8192": rep_v1,
-            "repify_file_bucket": rep_bucket}
+            "repify_file_bucket": rep_bucket, "rans_1024x8192": rans_v1,
+            "rans_file_bucket": rans_bucket}
 
 
 def run_v1_encode(tally: Tally, data: bytes, device, card: str, ratios: dict):
@@ -1528,6 +1724,15 @@ def check_kernels_opt(tally: Tally, data: bytes, device):
                work=dp_work(delta, mlen, nvt, costs, N))
     del delta, mlen, choice, cov
 
+    # rans_backward on the spans the optimal encode codes (its last round)
+    ol, ov = eo._device_parse(dt, nvt, (1 << V1_ENC_HIST_BITS) - 1, T, "optimal")
+    ospans, _, _ = eo.emit_model(ol, ov, eo.repify(ol, ov))
+    rcap = rans_frame_cap(N)
+    tally.hold("rans_backward", lambda: eo.rans_backward(ospans, rcap),
+               lambda: eo.rans_backward_ref(ospans, rcap), timed=False)
+    rans_opt = rans_timing(ospans, rcap)
+    del ol, ov, ospans
+
     # N > 32768: the walk's steps and start mask in global scratch
     big = BIG_COVER["block_size"]
     arr, nv = eo._blocks_arrays(data[: BIG_COVER["bytes"]], big)
@@ -1592,7 +1797,7 @@ def check_kernels_opt(tally: Tally, data: bytes, device):
     return {"blocks": B, "steps": T, "commands_round1": n_cmd,
             "big_cover": dict(blocks=bt.shape[0], **BIG_COVER), "emit_model_wide": wide,
             "dp_parse_8k": dp_8k, "dp_parse_wide": dp_wide, "dp_parse_long_match": dp_long,
-            "repify_opt_round1": rep_opt}
+            "repify_opt_round1": rep_opt, "rans_opt_final": rans_opt}
 
 
 def cover_work(name: str, args, op_len, op_val):
@@ -1692,6 +1897,125 @@ def rep_timing(op_len, op_val) -> dict:
     return dict(blocks=B, rows=T, matches=int(matches.sum()), max_matches=longest, ms=ms,
                 ns_per_match=ms * 1e6 / max(longest, 1), ns_per_row=ms * 1e6 / T,
                 bound_ms=b_ms, bound_by=b_by, runs=rep_runs(op_len, op_val))
+
+
+def rans_frame_cap(T: int) -> int:
+    """encode_blocks_device's rANS cap for blocks of T rows (N = T)."""
+    return ((3 * T + 64 + 255) // 256) * 256
+
+
+def rans_shape(B: int) -> dict:
+    """csrc/rans_backward.cu's launch at B blocks on this card
+    (nlzm_rans_shape): blocks a CTA (G), threads, dynamic shared bytes,
+    registers a thread (cudaFuncGetAttributes), resident CTAs an SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the waves of its
+    ceil(B / G) CTAs."""
+    import ctypes
+
+    import torch
+
+    from nlzm_tpu_torch import _build
+
+    out = (ctypes.c_int * 7)()
+    st = _build.entry("rans_backward", "nlzm_rans_shape", 1, 1)(
+        ctypes.addressof(out), B, torch.cuda.current_device(), None)
+    if st:
+        raise RuntimeError(f"nlzm_rans_shape: CUDA error {st}")
+    G, threads, smem, regs, ctas, sms, R = out
+    if R != RANS_R:
+        raise AssertionError(f"csrc/rans_backward.cu's R {R} is not RANS_R {RANS_R}")
+    grid = -(-B // G)
+    return dict(G=G, threads=threads, smem_bytes=smem, registers=regs, ctas_per_sm=ctas,
+                waves=-(-grid // (ctas * sms)) if ctas else None)
+
+
+def rans_work(spans, cap: int):
+    """rans_backward's (bytes, ops): the [T, B, 6] spans read once, the
+    stream and rans_bytes written once; ~30 operations a span (its
+    division, the renorm, its place in the stream)."""
+    import torch
+
+    B = spans.shape[1]
+    return nbytes(spans) + B * (cap + 4), 30 * int(torch.count_nonzero(spans))
+
+
+def kernel_device_ms(fn, key: str, reps: int = KERNEL_REPS):
+    """Mean device ms of the kernels whose name holds `key`, over reps calls
+    of fn() under torch.profiler after one warm-up call: the kernel alone,
+    without the wrapper's host time (which back-to-back CUDA-event means
+    include once a call is shorter than it). None if none was traced."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, n = 0.0, 0
+    for e in prof.key_averages():
+        if key in e.key:
+            total += getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+            n += e.count
+    return total / n / 1e3 if n else None
+
+
+def rans_timing(spans, cap: int) -> dict:
+    """rans_backward on these spans: CUDA-event mean (ms) and the kernel's
+    device time (device_ms, kernel_device_ms), ns a step of the longest
+    chain (the most spans a block / 4, from ms), its bound (rans_work) and
+    the launch shape (rans_shape)."""
+    from nlzm_tpu_torch.ops import encode_ops as eo
+
+    call = lambda: eo.rans_backward(spans, cap)
+    ms = timed_mean(call, KERNEL_REPS)
+    T, B, _ = spans.shape
+    per_block = (spans != 0).sum(dim=(0, 2))
+    longest = int(per_block.max()) if B else 0
+    b_ms, b_by = bound(*rans_work(spans, cap))
+    return dict(blocks=B, rows=T, cap=cap, spans=int(per_block.sum()), max_spans=longest, ms=ms,
+                device_ms=kernel_device_ms(call, "rans"),
+                ns_per_step=ms * 1e6 / max(longest / 4, 1), bound_ms=b_ms, bound_by=b_by,
+                **rans_shape(B))
+
+
+def check_rans(tally: Tally, device) -> dict:
+    """Phase kernels_rans: the kernel's span records (nlzm_rans_records: a
+    and the magic) for every f in 1..65535 against rans_magic's, exact;
+    rans_backward against its plain version, exact, on every fuzz_spans
+    pattern at 16 x 4096 at its frame cap (timed: rans_timing) and at
+    caps 1024, 101 and 37, and on dense spans at 1024 x 8192 (timed).
+    Returns the phase's fields."""
+    import numpy as np
+    import torch
+
+    from nlzm_tpu_torch import _build
+    from nlzm_tpu_torch.ops import encode_ops as eo
+
+    dev = torch.device(device)
+    rec = torch.empty(1 << 16, 3, dtype=torch.int32, device=dev)
+    st = _build.entry("rans_backward", "nlzm_rans_records", 1, 1)(
+        rec.data_ptr(), 1 << 16, dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+    if st:
+        raise RuntimeError(f"nlzm_rans_records: CUDA error {st}")
+    f = np.arange(1, 1 << 16)
+    want = np.stack([np.where(f == 1, 1 << 14, 1), *rans_magic(f)], 1)
+    if not (rec.cpu().numpy().view(np.uint32)[1:] == want).all():
+        raise AssertionError("nlzm_rans_records differs from rans_magic")
+    worst = {}
+    for B, T, names in ((16, 4096, None), (1024, V1_ENC["block_size"], ("dense",))):
+        for pat, arr in fuzz_spans(7, T, B, names).items():
+            sp = torch.as_tensor(arr, device=dev)
+            cap = rans_frame_cap(sp.shape[0])
+            for c in (cap, 1024, 101, 37) if B == 16 else (cap,):
+                tally.hold("rans_backward", lambda: eo.rans_backward(sp, c),
+                           lambda: eo.rans_backward_ref(sp, c), timed=False)
+            worst[pat if B == 16 else f"{pat}_1024x8192"] = rans_timing(sp, cap)
+            del sp
+    return {"records_checked": (1 << 16) - 1, "worst_cases": worst,
+            "worst_cases_shape": "fuzz_spans(7) patterns at 16 x 4096 (ragged 4059 x 13, "
+            "one_row 1 x 15) and dense at 1024 x 8192, each at its frame cap"}
 
 
 def check_rep(tally: Tally, device) -> dict:
@@ -2234,6 +2558,12 @@ def main() -> int:
           "timing": f"CUDA events, mean of {KERNEL_REPS} back-to-back calls; ns a match of the "
                     f"block with the most matches; runs from rep_model on the host",
           "card": card})
+    t0 = time.perf_counter()
+    rans = check_rans(tally, "cuda")
+    emit({"phase": "kernels_rans", "ok": True, **rans, "seconds": time.perf_counter() - t0,
+          "timing": f"CUDA events, mean of {KERNEL_REPS} back-to-back calls; ns a step of the "
+                    f"longest chain (the most spans a block / 4); registers, CTAs an SM and "
+                    f"waves from the CUDA runtime", "card": card})
     plane_launches, plane_shape = check_plane_decode(tally, wide_c, "cuda")
     emit({"phase": "kernels_plane_decode", "ok": True, **plane_shape,
           "kernels": tally.summary(("plane_decode",)), "launches": plane_launches,
