@@ -124,10 +124,15 @@ card and fails (nonzero exit, no result line) on anything wrong:
     round-trip through plane_encode, plane_streams, stage_plane and
     plane_scan, and hold the kernel to its plain version also under
     hostile context rows;
-24. kernels_research: huff_scan on the 8 MB at 32 KiB blocks and on a
-    container with a truncated payload, ppm_decode on 4 MiB of NLZC at
-    16 KiB blocks (bench.py:371-394) and on its streams cut short (the
-    window clamp), each against its plain version, exact;
+24. kernels_research: huff_scan on the 8 MB at 32 KiB blocks, on a
+    container with a truncated payload, on the NLZC container's prior (4 x
+    32768), on 8 MB of random bytes at 32 KiB blocks, on 2 MiB at 128 KiB
+    blocks and on every fuzz_huff pattern (16 x 4096), ppm_decode on 4 MiB
+    of NLZC at 16 KiB blocks (bench.py:371-394) and on its streams cut
+    short (the window clamp), each against its plain version, exact;
+    huff_scan timed at each of those shapes but the truncated one
+    (huff_timing: ms, device ms, ns a symbol, registers, CTAs an SM,
+    waves), and the phase's seconds;
 25. e2e_nlzc: ppm_tpu.decompress of that container must return the input
     and launch exactly huff_scan (its prior) and ppm_decode once; MB/s
     end to end and with the streams staged, the ratio, the host encode;
@@ -141,7 +146,8 @@ a path that did not launch each of its kernels fails, 20-22 must launch
 exactly the kernels of one optimal-parse encode (V1_OPT_LAUNCHES,
 WIDE_OPT_LAUNCHES; 22 once per bucket), 25 NLZC_LAUNCHES. The kernels
 line reports the counts of 4, 8, the to-file calls of 12, 14, 15, 17, 18,
-20-22, 23, 25 and 26. Each phase prints one JSON line. The last three lines are the kernels summary,
+20-22, 23, 25 and 26. Each phase prints one JSON line, and a "done" line
+the whole run's seconds. The last three lines are the kernels summary,
 the card line of nvidia-smi, and {"ok": true, "device": ...}. Imports
 nothing of JAX, of nlzm_tpu or of bench.py: the port, and its own copy of
 bench.py's corpus generator.
@@ -200,6 +206,18 @@ REP_GUESS = (0, -1, -2, -3)
 DP_SHORT = 16  # dp_steps' model of csrc/dp_parse.cu's SHORT: the longest reach priced from slots
 RANS_R = 96  # csrc/rans_backward.cu's R: rows a tile (rans_model)
 RANS_NO_PAIR = 0x10000  # a span's code when it emits no pair
+# csrc/huff_scan.cu's scheme (huff_model): 14 entries a span (codeword
+# starts 0..13 bits past it), threads // 14 chunks of spans in the
+# composition, and bits a page at 512 and 1024 threads a CTA: the words
+# that fit its dynamic shared bytes (108 and 216 KiB) after the decode table
+# (2^14 u16), HUFF_SPAN_BYTES a span (a span a thread) and 16, at 8 bytes a
+# word (row, marks), less 2
+HUFF_LIMIT = 14  # huff0.CODE_LEN_LIMIT
+HUFF_NE = 14
+HUFF_KW_MIN = 9  # words a span at least, under the kernel's rule
+HUFF_SPAN_BYTES = 20
+HUFF_PAGE = {nt: 32 * ((smem - (2 << 14) - HUFF_SPAN_BYTES * nt - 16) // 8 - 2)
+             for nt, smem in ((512, 108 << 10), (1024, 216 << 10))}
 # launches of one optimal-parse encode (nlzm_tpu/ops/encode_ops.py:708
 # _calibrated_parse, then the profile's encode); a file encode runs it per bucket
 V1_OPT_LAUNCHES = dict(find_matches=1, dp_parse=3, dp_cover=3, repify=3, emit_model=3,
@@ -211,6 +229,7 @@ WIDEOPT_KERNELS = tuple(WIDE_OPT_LAUNCHES)
 NLZC = dict(bytes=4 << 20, block_size=16384)  # bench.py:371-394, NLZM_BENCH_NLZC=1
 HUFF0 = dict(bytes=SHIP_BYTES, block_size=32768)  # the huff0 container default
 HUFF0_TRUNC = dict(bytes=256 << 10, block_size=4096)  # a short chain for the plain scan
+HUFF_BIG = dict(bytes=2 << 20, block_size=131072)  # huff_scan across pages
 NLZC_LAUNCHES = dict(huff_scan=1, ppm_decode=1)  # the prior, then the blocks
 RESEARCH_KERNELS = tuple(NLZC_LAUNCHES)
 # synthetic plane specs (PlaneSpec fields) swapped in for dst: the 4-row
@@ -865,6 +884,323 @@ def rans_model(spans, cap: int, R: int = RANS_R):
         m = min(cap, len(body))
         stream[b, :m] = np.frombuffer(body[:m], np.uint8)
     return stream, np.asarray([16 + 2 * len(p) for p in pairs], np.int32)
+
+
+def huff_staged(container: bytes):
+    """huff0.stage_blocks of a container on the CPU, as numpy:
+    (streams, base_l, limit_l, offs, syms, T)."""
+    from nlzm_tpu_torch.research import huff0
+
+    st = huff0.stage_blocks(container, *huff0._parse(container), "cpu")
+    return tuple(a.numpy() for a in st[:5]) + (st[6],)
+
+
+def huff_tables(lengths_list):
+    """(base_l, limit_l, offs, syms) int32 [B, 15] x 3 and [B, 256] of
+    huff0.left_tables for each block's code lengths."""
+    import numpy as np
+
+    from nlzm_tpu_torch.research import huff0
+
+    cols = zip(*(huff0.left_tables(np.asarray(ln)) for ln in lengths_list))
+    return tuple(np.stack(c).astype(np.int32) for c in cols)
+
+
+def fuzz_huff(seed: int, B: int = 16, T: int = 4096, names=None) -> dict:
+    """Inputs of huff_scan drawn from a seed, for the worst cases of
+    csrc/huff_scan.cu, as staged (streams [B, S] uint8, base_l, limit_l,
+    offs [B, 15] int32, syms [B, 256] int32, T) a pattern:
+    - "corpus": build_corpus at T-byte blocks (chains merge within a span);
+    - "random": random bytes under all-8 code lengths (chains that start in
+      different phases never merge: 8 exits a span);
+    - "uniform64", "uniform128": bytes drawn uniformly from 64 or 128
+      symbols (base64 text, 7-bit data), coded by huff0.encode: lengths 6
+      or 7 but for a few, so chains that start apart rarely merge within a
+      span, and spans of 32 KW bits (KW odd) start in another phase of the
+      7-bit codes;
+    - "repeat": one symbol a block, repeated (length 1: a step a bit);
+    - "limit14": Fibonacci counts, cut to 14 bits by code_lengths' halving,
+      and symbols drawn with probability 2^-length (the longest codes);
+    - "zeros": all-zero streams under the corpus tables (peek 0 at every
+      step);
+    - "noise": random rows of S = 301 bytes under the corpus tables (the
+      last word is nonzero, so the periodic tail is not zero);
+    - "hostile": random int32 limits, bases, offsets and symbols over
+      random rows of S = 301 (wrapping index arithmetic, every clamp);
+    - "truncated": the corpus container with block 1's payload cut by 37
+      bytes (huff0._truncated);
+    - "short_last": the corpus at B - 1 full blocks and a last one of T / 3
+      bytes;
+    - "ragged": the corpus at T - 37 bytes a block (no multiple of 32) and
+      B - 3 blocks;
+    - "t1": T = 1, B = 1, S = 1.
+    names: the patterns to return (default all)."""
+    import numpy as np
+
+    from nlzm_tpu_torch.research import huff0
+
+    rng = np.random.default_rng(seed)
+    corpus = build_corpus(B * T + 4096)
+    start = int(rng.integers(0, 4096))
+    text = corpus[start : start + B * T]
+
+    def from_payloads(blocks, lengths_list):
+        payloads = [huff0._encode_payload(d, ln) for d, ln in zip(blocks, lengths_list)]
+        streams = np.zeros((len(payloads), max(map(len, payloads)) + 8), np.uint8)
+        for b, p in enumerate(payloads):
+            streams[b, : len(p)] = np.frombuffer(p, np.uint8)
+        return (streams, *huff_tables(lengths_list), max(map(len, blocks)))
+
+    def random():
+        return from_payloads([rng.integers(0, 256, T, np.uint8).tobytes() for _ in range(B)],
+                             [np.full(256, 8)] * B)
+
+    def uniform(k):
+        return huff_staged(huff0.encode(rng.integers(0, k, B * T, np.uint8).tobytes(), T))
+
+    def repeat():
+        return huff_staged(huff0.encode(bytes(rng.integers(0, 256, B, np.uint8).repeat(T)), T))
+
+    def limit14():
+        fib = [1, 1]
+        while len(fib) < 256:
+            fib.append(min(fib[-1] + fib[-2], 1 << 40))
+        lengths = huff0.code_lengths(np.asarray(fib, np.int64))
+        lengths_list, blocks = [], []
+        for _ in range(B):
+            ln = rng.permutation(lengths)
+            p = 2.0 ** -ln.astype(np.float64)
+            blocks.append(rng.choice(256, T, p=p / p.sum()).astype(np.uint8).tobytes())
+            lengths_list.append(ln)
+        return from_payloads(blocks, lengths_list)
+
+    def under_corpus(streams):
+        return (streams, *huff_staged(huff0.encode(text, T))[1:])
+
+    def hostile():
+        i32 = lambda *sh: rng.integers(-(1 << 31), 1 << 31, sh, np.int64).astype(np.int32)
+        return (rng.integers(0, 256, (B, 301), np.uint8), i32(B, 15), i32(B, 15), i32(B, 15),
+                i32(B, 256), T)
+
+    make = {
+        "corpus": lambda: huff_staged(huff0.encode(text, T)),
+        "random": random,
+        "uniform64": lambda: uniform(64),
+        "uniform128": lambda: uniform(128),
+        "repeat": repeat,
+        "limit14": limit14,
+        "zeros": lambda: under_corpus(np.zeros_like(huff_staged(huff0.encode(text, T))[0])),
+        "noise": lambda: under_corpus(rng.integers(0, 256, (B, 301), np.uint8)),
+        "hostile": hostile,
+        "truncated": lambda: huff_staged(huff0._truncated(huff0.encode(text, T), 1, 37)),
+        "short_last": lambda: huff_staged(huff0.encode(text[: (B - 1) * T + T // 3], T)),
+        "ragged": lambda: huff_staged(huff0.encode(text[: (B - 3) * (T - 37)], T - 37)),
+        "t1": lambda: (rng.integers(0, 256, (1, 1), np.uint8),
+                       *huff_staged(huff0.encode(text[:1], 1))[1:5], 1),
+    }
+    return {k: make[k]() for k in (names or make)}
+
+
+def huff_decode_table(base_l, limit_l, offs, syms):
+    """Every 14-bit peek's code length and symbol, [B, 2^14] int64 each, as
+    csrc/huff_scan.cu tabulates them: L = clip(1 + #{l : peek >=
+    limit_l[l]}, 1, 14), the symbol syms[clip(offs[L] + ((peek - base_l[L])
+    >> (14 - L)), 0, 255)] & 255, the index arithmetic in int32 (wrapping,
+    as JAX's)."""
+    import numpy as np
+
+    wrap = lambda v: ((v + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+    peek = np.arange(1 << HUFF_LIMIT, dtype=np.int64)[None, :]
+    lim = np.asarray(limit_l, np.int64)[:, 1:]
+    L = np.clip(1 + (peek[:, :, None] >= lim[:, None, :]).sum(2), 1, HUFF_LIMIT)
+    pick = lambda t: np.take_along_axis(np.asarray(t, np.int64), L, 1)
+    idx = wrap(pick(offs) + (wrap(peek - pick(base_l)) >> (HUFF_LIMIT - L)))
+    sym = np.take_along_axis(np.asarray(syms, np.int64), np.clip(idx, 0, 255), 1) & 255
+    return L, sym
+
+
+def huff_words(streams):
+    """[B, W] uint64: the rows as big-endian u32 words, zero-padded to W =
+    ceil(S / 4) words (bit p of the stream is bit 31 - (p & 31) of word p >>
+    5; the decode clamps the word to W - 1)."""
+    import numpy as np
+
+    B, S = streams.shape
+    W = -(-S // 4)
+    pad = np.zeros((B, 4 * W), np.uint64)
+    pad[:, :S] = streams
+    pad = pad.reshape(B, W, 4)
+    return (pad[..., 0] << 24) | (pad[..., 1] << 16) | (pad[..., 2] << 8) | pad[..., 3]
+
+
+def huff_peek(words, p):
+    """The 14 bits at bit offsets p ([B, ...] int64) of each row's stream
+    (words from huff_words): the two words at p >> 5, each clamped to W -
+    1, funnel-shifted left by p & 31."""
+    import numpy as np
+
+    B, W = words.shape
+    rows = np.arange(B).reshape((B,) + (1,) * (p.ndim - 1))
+    i = np.minimum(p >> 5, W - 1)
+    hi, lo = words[rows, i], words[rows, np.minimum(i + 1, W - 1)]
+    s = (p & 31).astype(np.uint64)
+    v = ((hi << s) | (lo >> (np.uint64(32) - s))) & np.uint64(0xFFFFFFFF)
+    return (v >> np.uint64(18)).astype(np.int64)
+
+
+def huff_maps(words, L, a, b):
+    """Phase A of csrc/huff_scan.cu for spans [a, b) (int64 [n] bit
+    offsets, every row the same): each span's map from its 14 entries (a
+    codeword starting at a + e, e = 0..13) to (exit, count): the first
+    codeword start at or past b, minus b, and the codewords before it.
+    Entry 0's chain runs first and marks its starts; every other entry
+    runs until it lands on a mark, where it joins entry 0's chain: its
+    count is then its own steps plus the marks from there on. Returns
+    (exit, count), [B, n, 14] int64 each."""
+    import numpy as np
+
+    B, n = words.shape[0], len(a)
+    rows = np.arange(B)[:, None, None]
+    K = int((b - a).max(initial=1))
+    p = np.broadcast_to(a[None, :], (B, n)).copy()
+    n0 = np.zeros((B, n), np.int64)
+    marks = np.zeros((B, n, K + 1), bool)
+    while True:
+        act = p < b
+        if not act.any():
+            break
+        bi, si = np.nonzero(act)
+        marks[bi, si, p[bi, si] - a[si]] = True
+        n0 += act
+        p = np.where(act, p + np.take_along_axis(L, np.clip(huff_peek(words, p), 0, None), 1), p)
+    x0 = p - b
+    suffix = np.cumsum(marks[..., ::-1], axis=2)[..., ::-1]  # marks at or past q
+    pe = (a[:, None] + np.arange(1, HUFF_NE))[None].repeat(B, 0)  # [B, n, 13]
+    ne = np.zeros_like(pe)
+    joined = np.zeros(pe.shape, bool)
+    bb = b[None, :, None]
+    si = np.arange(n)[None, :, None]
+    while True:
+        act = (pe < bb) & ~joined
+        q = np.clip(pe - a[None, :, None], 0, K)
+        hit = act & marks[rows, si, q]
+        joined |= hit
+        act &= ~hit
+        if not act.any():
+            break
+        ne += act
+        step = np.take_along_axis(L, huff_peek(words, pe).reshape(B, -1), 1).reshape(pe.shape)
+        pe = np.where(act, pe + step, pe)
+    q = np.clip(pe - a[None, :, None], 0, K)
+    exit_ = np.concatenate([x0[..., None], np.where(joined, x0[..., None], pe - bb)], 2)
+    count = np.concatenate([n0[..., None], ne + np.where(joined, suffix[rows, si, q], 0)], 2)
+    return exit_, count
+
+
+def huff_model(streams, base_l, limit_l, offs, syms, T: int, K=None, page=None,
+               threads: int = 512, stats=None):
+    """A numpy model of csrc/huff_scan.cu's scheme: [B, T] uint8 as
+    huff_scan. The chain of codeword starts is a function of the bit offset
+    alone, and a codeword is at most 14 bits. From word z on, every word
+    the decode reads equals word W - 1 (z: one past the last earlier word
+    that does not; reads past W - 1 read it), so a block's bits from E = 32
+    z repeat with period 32. The bits [0, R), R = min(E, 14 T) (the first T
+    starts lie below 14 T; the kernel takes each block's own R, the model
+    the largest, which reads past a smaller E as the tail would), are cut
+    into pages of `page` bits (default
+    HUFF_PAGE[threads]) and each page into spans of K bits (default the
+    kernel's rule: 32 KW, KW the least odd number of words, at least
+    HUFF_KW_MIN, that gives at most `threads` spans). A page's maps
+    (huff_maps: the kernel computes an entry's map where it needs it, by
+    the same marks) are composed in threads // 14 chunks: each chunk walked
+    from an entry, recording that walk's entry at each of its spans (the
+    kernel's path words); a walk over the chunks' exits from the carried
+    entry; each span's true entry read from its record, its count there,
+    and their running sum from the carried count, each span's first output
+    index; then each span decodes again from its entry, dropping indices
+    at or past T. The kernel walks each chunk from its guess (its first
+    span's e1, the carried entry for the first) and, from the first chunk
+    entered off its guess on, from every entry; the model walks every chunk
+    from every entry, which gives the same records, and counts in
+    stats["repaired"] (a dict, if given) the pages of blocks where a guess
+    failed, and in stats["pages"] all of them. A block
+    still short of T at E walks residues mod 32 from its entry (the exit
+    of the last span): 64 steps, then the cycle, whose length is the first
+    return to the 32nd residue, repeats to T."""
+    import numpy as np
+
+    streams = np.asarray(streams)
+    B, S = streams.shape
+    out = np.zeros((B, T), np.uint8)
+    if B == 0 or T == 0:
+        return out
+    words = huff_words(streams)
+    W = words.shape[1]
+    L, sym = huff_decode_table(base_l, limit_l, offs, syms)
+    other = words[:, : W - 1] != words[:, W - 1 :]
+    z = np.where(other, np.arange(1, W), 0).max(initial=0)
+    R = min(32 * int(z), HUFF_LIMIT * T)
+    page = page or HUFF_PAGE.get(threads, HUFF_PAGE[512])
+    entry = np.zeros(B, np.int64)
+    nout = np.zeros(B, np.int64)
+    for pa in range(0, R, page):
+        if (nout >= T).all():
+            break
+        bits = min(page, R - pa)
+        kw = max(HUFF_KW_MIN, -(-bits // 32 // threads)) if K is None else K // 32
+        kw += K is None and kw % 2 == 0
+        a = pa + np.arange(0, bits, 32 * kw, dtype=np.int64)
+        b = np.minimum(a + 32 * kw, pa + bits)
+        n = len(a)
+        ex, cnt = huff_maps(words, L, a, b)
+        C = -(-n // max(threads // HUFF_NE, 1))
+        rows = np.arange(B)
+        path = np.zeros((B, n, HUFF_NE), np.int64)  # each chunk's walk from entry x, at span s
+        c_exit = []
+        for c0 in range(0, n, C):
+            e = np.broadcast_to(np.arange(HUFF_NE), (B, HUFF_NE)).copy()
+            for s in range(c0, min(c0 + C, n)):
+                path[:, s] = e
+                e = np.take_along_axis(ex[:, s], e, 1)
+            c_exit.append(e)
+        c_ent = np.zeros((B, len(c_exit)), np.int64)
+        guess = c_ent.copy()
+        for c, e in enumerate(c_exit):  # the walk over the chunks' exits
+            c_ent[:, c] = entry
+            guess[:, c] = ex[:, c * C - 1, 0] if c else entry
+            entry = e[rows, entry]
+        if stats is not None:
+            live = nout < T
+            stats["repaired"] = stats.get("repaired", 0) + int(((c_ent != guess).any(1) & live).sum())
+            stats["pages"] = stats.get("pages", 0) + int(live.sum())
+        s_ent = np.take_along_axis(path, c_ent[:, np.arange(n) // C, None], 2)[..., 0]
+        s_cnt = np.take_along_axis(cnt, s_ent[..., None], 2)[..., 0]
+        s_out = nout[:, None] + np.cumsum(s_cnt, 1) - s_cnt
+        nout = nout + s_cnt.sum(1)
+        p, idx = a[None, :] + s_ent, np.minimum(s_out, T)
+        while True:  # phase C: every span from its true entry
+            act = (p < b[None, :]) & (idx < T)
+            if not act.any():
+                break
+            pk = huff_peek(words, p)
+            bi, si = np.nonzero(act)
+            out[bi, idx[bi, si]] = np.take_along_axis(sym, pk, 1)[bi, si]
+            idx += act
+            p = np.where(act, p + np.take_along_axis(L, pk, 1), p)
+    for bi in np.nonzero(nout < T)[0]:  # the periodic tail from E
+        w = int(words[bi, W - 1])
+        v = [((w << r) | (w >> (32 - r))) & 0xFFFFFFFF for r in range(32)]
+        pk = np.asarray([x >> 18 for x in v])
+        Lr, sr = L[bi, pk], sym[bi, pk]
+        r, walk = int(entry[bi]), []
+        for _ in range(64):
+            walk.append(r)
+            r = (r + int(Lr[r])) & 31
+        lam = next((k for k in range(1, 32) if walk[32 + k] == walk[32]), 32)
+        j = np.arange(T - int(nout[bi]))
+        at = np.where(j < 32, np.minimum(j, 63), 32 + (j - 32) % lam)
+        out[bi, int(nout[bi]) :] = sr[np.asarray(walk)[at]]
+    return out
 
 
 def emit(obj) -> None:
@@ -1943,22 +2279,119 @@ def kernel_device_ms(fn, key: str, reps: int = KERNEL_REPS):
     """Mean device ms of the kernels whose name holds `key`, over reps calls
     of fn() under torch.profiler after one warm-up call: the kernel alone,
     without the wrapper's host time (which back-to-back CUDA-event means
-    include once a call is shorter than it). None if none was traced."""
+    include once a call is shorter than it), over the launches traced: a
+    profile may lose some of the tracer's records, and late in a long run
+    all of them, so up to 3 profiles run until one traces any. None if
+    none did."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total, n = 0.0, 0
-    for e in prof.key_averages():
-        if key in e.key:
-            total += getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
-            n += e.count
-    return total / n / 1e3 if n else None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total, n = 0.0, 0
+        for e in prof.key_averages():
+            if key in e.key:
+                total += getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+                n += e.count
+        if n:
+            return total / n / 1e3
+    return None
+
+
+def huff_shape(B: int) -> dict:
+    """csrc/huff_scan.cu's launch at B blocks on this card (nlzm_huff_shape):
+    K (bits a span), threads a CTA, dynamic shared bytes, registers a thread
+    (cudaFuncGetAttributes), resident CTAs an SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), bits a page, and the
+    waves of B CTAs."""
+    import ctypes
+
+    import torch
+
+    from nlzm_tpu_torch import _build
+
+    out = (ctypes.c_int * 7)()
+    st = _build.entry("huff_scan", "nlzm_huff_shape", 1, 1)(
+        ctypes.addressof(out), B, torch.cuda.current_device(), None)
+    if st:
+        raise RuntimeError(f"nlzm_huff_shape: CUDA error {st}")
+    kw, threads, smem, regs, ctas, sms, page = out
+    return dict(threads=threads, K=f"32 x {kw}" if kw else "rule", smem_bytes=smem,
+                registers=regs, ctas_per_sm=ctas, page_bits=page,
+                waves=-(-B // (ctas * sms)) if ctas else None)
+
+
+def huff_work(args):
+    """huff_scan's (bytes, ops): streams and tables read once, [B, T] bytes
+    written once; a table decode's operations: ~10 a symbol (two stream
+    words, a funnel shift, one table read, the length's add, the symbol's
+    store), every block T steps, and ~4 an entry of a block's 2^14-entry
+    decode table (the index arithmetic, its clamp, the symbol's read, the
+    store)."""
+    B, T = args[0].shape[0], args[5]
+    return nbytes(*args[:5]) + B * T, 10 * B * T + 4 * B * (1 << HUFF_LIMIT)
+
+
+def huff_timing(args) -> dict:
+    """huff_scan on these staged arrays: CUDA-event mean (ms), the kernel's
+    device time (kernel_device_ms), ns a symbol of the [B, T] output, its
+    bound (huff_work) and the launch shape (huff_shape)."""
+    from nlzm_tpu_torch.research import huff0
+
+    B, S = args[0].shape
+    T = args[5]
+    call = lambda: huff0._huff_scan(*args)
+    ms = timed_mean(call, KERNEL_REPS)
+    b_ms, b_by = bound(*huff_work(args))
+    return dict(blocks=B, S=S, T=T, ms=ms, device_ms=kernel_device_ms(call, "huff"),
+                ns_per_symbol=ms * 1e6 / max(B * T, 1), bound_ms=b_ms, bound_by=b_by,
+                **huff_shape(B))
+
+
+def nlzc_prior_container(data: bytes, block_size: int) -> bytes:
+    """The huff0 container of the prior ppm_tpu.compress(data, block_size)
+    ships (its v4 prior, 2 x 4096 x 16 bytes, huff0-coded at 32 KiB
+    blocks)."""
+    import numpy as np
+
+    from nlzm_tpu_torch.research import huff0, ppm_tpu
+
+    blocks = [data[b : b + block_size] for b in range(0, len(data), block_size)]
+    sym, prev, prev2, act, _ = ppm_tpu._layout(blocks)
+    prior = ppm_tpu.build_prior(sym, prev, prev2, act)
+    return huff0.encode(prior.astype(np.uint8).tobytes())
+
+
+def huff_inputs(corpus: bytes, prior_container: bytes, device, bench=True):
+    """(label, staged huff_scan arguments on `device`) of every shape the
+    kernel is held and timed at: the huff0 bench (8 MB at 32 KiB blocks,
+    245 x 32768; bench=False leaves it out), the NLZC prior (4 x 32768), 8
+    MB of random bytes, of 64 symbols and of 128 symbols drawn uniformly
+    (fuzz_huff's "uniform64" / "uniform128") at 32 KiB blocks, 2 MiB at
+    128 KiB blocks (16 x 131072), then every fuzz_huff(7) pattern at 16 x
+    4096."""
+    import numpy as np
+    import torch
+
+    from nlzm_tpu_torch.research import huff0
+
+    put = lambda st: tuple(torch.as_tensor(a, device=device) for a in st[:5]) + (st[5],)
+    full = lambda data: put(huff_staged(huff0.encode(data, HUFF0["block_size"])))
+    if bench:
+        yield "huff0_245x32768", full(corpus[: HUFF0["bytes"]])
+    yield "nlzc_prior_4x32768", put(huff_staged(prior_container))
+    rng = np.random.default_rng(7)
+    for k, label in ((256, "random"), (64, "uniform64"), (128, "uniform128")):
+        yield f"{label}_245x32768", full(rng.integers(0, k, HUFF0["bytes"], np.uint8).tobytes())
+    yield "big_16x131072", put(huff_staged(huff0.encode(corpus[: HUFF_BIG["bytes"]],
+                                                         HUFF_BIG["block_size"])))
+    for pat, st in fuzz_huff(7).items():
+        yield pat, put(st)
 
 
 def rans_timing(spans, cap: int) -> dict:
@@ -2378,25 +2811,33 @@ def ppm_decode_work(args, out):
 
 
 def check_research(tally: Tally, data: bytes, hc: bytes, blob: bytes, device):
-    """Phase 24: huff_scan on the huff0 container hc and on a short one
-    with a truncated payload; ppm_decode on the NLZC container blob, on
-    its streams cut to 40 words (the clamped window reads the last word,
-    which holds data) and on the blob cut short; each against its plain
-    version, exact, the first of each timed. Returns shape info."""
+    """Phase 24: huff_scan on the huff0 container hc (the tally's time),
+    on a short one with a truncated payload, and on every huff_inputs
+    shape (the NLZC prior of blob, random bytes, 128 KiB blocks, every
+    fuzz_huff pattern), each timed (huff_timing); ppm_decode on the NLZC
+    container blob, on its streams cut to 40 words (the clamped window
+    reads the last word, which holds data) and on the blob cut short; each
+    against its plain version, exact, the first of each timed. Returns
+    shape info and the huff_scan timings."""
     from nlzm_tpu_torch.research import huff0, ppm_tpu
 
     st = huff0.stage_blocks(hc, *huff0._parse(hc), device)
     hs = st[:5] + st[6:]
     B, T = st[0].shape[0], st[6]
-    # huff_scan: ~45 operations a step (3 byte loads and their clamps, 14
-    # compares, the selects, the symbol), every block T steps
     tally.hold("huff_scan", lambda: huff0._huff_scan(*hs), lambda: huff0._huff_scan_ref(*hs),
-               reps_plain=1, work=(nbytes(*hs[:5]) + B * T, 45 * B * T))
+               reps_plain=1, work=huff_work(hs))
+    huff = {"huff0_245x32768": huff_timing(hs)}
     small = huff0._truncated(huff0.encode(data[: HUFF0_TRUNC["bytes"]], HUFF0_TRUNC["block_size"]))
     ts = huff0.stage_blocks(small, *huff0._parse(small), device)
     ts = ts[:5] + ts[6:]
     tally.hold("huff_scan", lambda: huff0._huff_scan(*ts), lambda: huff0._huff_scan_ref(*ts),
                timed=False)
+    prior = ppm_tpu.parse_container(blob)[2]
+    for label, args in huff_inputs(data, prior, device, bench=False):
+        tally.hold("huff_scan", lambda: huff0._huff_scan(*args),
+                   lambda: huff0._huff_scan_ref(*args), timed=False)
+        huff[label] = huff_timing(args)
+        del args
 
     pd, _ = ppm_tpu.stage_container(blob, device)
     words, steps, nb = pd[0], pd[3], pd[0].shape[0]
@@ -2411,7 +2852,8 @@ def check_research(tally: Tally, data: bytes, hc: bytes, blob: bytes, device):
     tally.hold("ppm_decode", lambda: ppm_tpu._decode_blocks(*tw),
                lambda: ppm_tpu._decode_blocks_ref(*tw), timed=False)
     return {"huff0": {"blocks": B, "steps": T}, "huff0_truncated": {"blocks": ts[0].shape[0]},
-            "nlzc": {"blocks": nb, "steps": steps, "chunks": chunks, "words": words.shape[1]}}
+            "nlzc": {"blocks": nb, "steps": steps, "chunks": chunks, "words": words.shape[1]},
+            "huff_scan_timing": huff}
 
 
 def run_research(tally: Tally, data: bytes, device, card: str):
@@ -2425,11 +2867,14 @@ def run_research(tally: Tally, data: bytes, device, card: str):
     t0 = time.perf_counter()
     hc = huff0.encode(hdata, HUFF0["block_size"])
     huff0_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     shape = check_research(tally, data, hc, blob, device)
     emit({"phase": "kernels_research", "ok": True, **shape,
-          "kernels": tally.summary(RESEARCH_KERNELS),
+          "kernels": tally.summary(RESEARCH_KERNELS), "seconds": time.perf_counter() - t0,
           "timing": f"CUDA events, mean of {KERNEL_REPS} back-to-back calls; plain: 1 call "
-                    f"after its comparison call", "card": card})
+                    f"after its comparison call; huff_scan_timing: device ms from "
+                    f"torch.profiler, ns a symbol of the [B, T] output, registers, CTAs an SM "
+                    f"and waves from the CUDA runtime", "card": card})
 
     by_path = {}
     out, by_path["e2e_nlzc"] = launched(
@@ -2509,6 +2954,7 @@ def run_stream(files, device, card: str) -> dict:
 def main() -> int:
     import torch
 
+    start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
         return 2
@@ -2619,6 +3065,8 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "timed_at": shapes[n],
         })
+    emit({"phase": "done", "ok": True, "seconds": time.perf_counter() - start,
+          "timing": "host clock, the whole run, the kernels' build included"})
     emit({"kernels": rows})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -122,35 +122,23 @@ def left_tables(lengths: np.ndarray):
 
 
 # ---------------------------------------------------------------- host bit io
-class _BitWriter:
-    def __init__(self):
-        self.out = bytearray()
-        self.word = 0
-        self.bits = 0
-
-    def put(self, v: int, nb: int) -> None:
-        self.word |= v << (32 - self.bits - nb)
-        self.bits += nb
-        while self.bits >= 8:
-            self.out.append((self.word >> 24) & 0xFF)
-            self.word = (self.word << 8) & 0xFFFFFFFF
-            self.bits -= 8
-
-    def flush(self) -> bytes:
-        for _ in range(4):
-            self.out.append((self.word >> 24) & 0xFF)
-            self.word = (self.word << 8) & 0xFFFFFFFF
-        self.bits = 0
-        self.word = 0
-        return bytes(self.out)
-
-
 def _encode_payload(data: bytes, lengths: np.ndarray) -> bytes:
-    codes, _, _, _ = canonical_codes(lengths)
-    w = _BitWriter()
-    for b in data:
-        w.put(int(codes[b]), int(lengths[b]))
-    return w.flush()
+    """Each symbol's canonical code, MSB first, at its bit position (the
+    sum of the lengths before it), packed into bytes; then the flush of a
+    32-bit writer: the partial byte and three zero bytes."""
+    d = np.frombuffer(bytes(data), np.uint8)
+    lengths = np.asarray(lengths, np.int64)
+    ln, code = lengths[d], canonical_codes(lengths)[0].astype(np.int64)[d]
+    pos = np.cumsum(ln) - ln
+    n = int(ln.sum())
+    bits = np.zeros(n, np.uint8)
+    for k in range(CODE_LEN_LIMIT):
+        m = k < ln
+        bits[pos[m] + k] = (code[m] >> (ln[m] - 1 - k)) & 1
+    out = np.zeros(n // 8 + 4, np.uint8)
+    packed = np.packbits(bits)
+    out[: len(packed)] = packed
+    return out.tobytes()
 
 
 def _decode_payload(payload: bytes, lengths: np.ndarray, n: int) -> bytes:
@@ -318,12 +306,14 @@ def _huff_scan_ref(streams, base_l, limit_l, offs, syms, T: int):
     """Plain version of _huff_scan: one loop iteration per step, blocks as
     tensors. The code length and symbol of every 14-bit peek value are
     tabulated up front; a step reads the peek at its bit offset, looks
-    both up and advances by the length."""
+    both up and advances by the length. The index arithmetic wraps in
+    int32, as JAX's does."""
     B = streams.shape[0]
     dev = streams.device
     peek = torch.arange(1 << _PEEK, device=dev)
     L = (1 + (peek[None, :, None] >= limit_l[:, None, 1:].long()).sum(2)).clamp(1, CODE_LEN_LIMIT)
-    idx = offs.long().gather(1, L) + ((peek - base_l.long().gather(1, L)) >> (_PEEK - L))
+    i32 = lambda v: ((v + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+    idx = i32(offs.long().gather(1, L) + (i32(peek - base_l.long().gather(1, L)) >> (_PEEK - L)))
     sym_of = syms.long().gather(1, idx.clamp(0, 255)).to(torch.uint8)  # [B, 2^14]
     # bytes p, p + 1, p + 2 as one 24-bit value: the 14 bits at offset cb
     # are (v[cb >> 3] >> (10 - (cb & 7))) & 0x3FFF

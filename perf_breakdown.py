@@ -12,7 +12,9 @@ encodes it with the wide device encode (32 KiB blocks) and, on 8 MiB
 the greedy and the optimal parse, stage by stage through the functions
 encode_container(engine="device") runs; and decodes the NLZC research
 container of 4 MiB at 16 KiB blocks (chip_smoke.NLZC) stage by stage
-through the functions ppm_tpu.decompress runs: host clock around each
+through the functions ppm_tpu.decompress runs, and the huff0 container of
+the 8 MB at 32 KiB blocks (chip_smoke.HUFF0) through the functions
+huff0.decode runs: host clock around each
 stage, with a torch.cuda.synchronize() at every boundary, min and median
 over REPS runs. Then one decode of each, and one encode_container(engine=
 "device") of each profile, under torch.profiler: device time by kernel,
@@ -37,7 +39,7 @@ from nlzm_tpu_torch.ops import wide_decode as wd
 from nlzm_tpu_torch.ops import wide_encode_dev as we
 from nlzm_tpu_torch.ops.expand_ops import scatter_blocks
 from nlzm_tpu_torch.parallel import blocks
-from nlzm_tpu_torch.research import ppm_tpu
+from nlzm_tpu_torch.research import huff0, ppm_tpu
 from nlzm_tpu_torch.utils.crc32 import crc32
 
 REPS = 6
@@ -217,6 +219,24 @@ def nlzc_stages(blob: bytes, data: bytes, dev) -> dict:
     return c.ms
 
 
+def huff0_stages(container: bytes, data: bytes, dev) -> dict:
+    """The huff0 device decode, stage by stage: huff0.decode's parse,
+    staging (per-block tables, upload), kernel, and copy back and trim."""
+    c = Clock()
+    parsed = huff0._parse(container)
+    c.lap("_parse")
+    streams, base_l, limit_l, offs, syms, n_out, T = huff0.stage_blocks(container, *parsed, dev)
+    c.lap("stage_blocks (tables, upload)")
+    out = huff0._huff_scan(streams, base_l, limit_l, offs, syms, T)
+    c.lap("_huff_scan (huff_scan)")
+    out = out.cpu().numpy()
+    plain = out[np.arange(T)[None, :] < n_out[:, None]].tobytes()[: parsed[1]]
+    c.lap("copy back and trim")
+    if plain != data:
+        raise AssertionError("huff0 decoded bytes differ from the input")
+    return c.ms
+
+
 def check(plain: bytes, data: bytes, info) -> None:
     """The decode's CRC verification (blocks._verified), then the bytes."""
     if blocks._verified(plain, info) != data:
@@ -306,6 +326,10 @@ def main() -> int:
     nblob = ppm_tpu.compress(ndata, chip_smoke.NLZC["block_size"])
     runs_of["nlzc_decode"] = (lambda: nlzc_stages(nblob, ndata, dev),
                               lambda: ppm_tpu.decompress(nblob, device=dev), len(ndata))
+    hdata = corpus[: chip_smoke.HUFF0["bytes"]]
+    hblob = huff0.encode(hdata, chip_smoke.HUFF0["block_size"])
+    runs_of["huff0_decode"] = (lambda: huff0_stages(hblob, hdata, dev),
+                               lambda: huff0.decode(hblob, device=dev), len(hdata))
     for name, (stages_fn, whole, nbytes) in runs_of.items():
         stages_fn()  # warm: kernel builds, allocator
         runs = [stages_fn() for _ in range(REPS)]
