@@ -128,11 +128,15 @@ card and fails (nonzero exit, no result line) on anything wrong:
     container with a truncated payload, on the NLZC container's prior (4 x
     32768), on 8 MB of random bytes at 32 KiB blocks, on 2 MiB at 128 KiB
     blocks and on every fuzz_huff pattern (16 x 4096), ppm_decode on 4 MiB
-    of NLZC at 16 KiB blocks (bench.py:371-394) and on its streams cut
-    short (the window clamp), each against its plain version, exact;
-    huff_scan timed at each of those shapes but the truncated one
-    (huff_timing: ms, device ms, ns a symbol, registers, CTAs an SM,
-    waves), and the phase's seconds;
+    of NLZC at 16 KiB blocks (bench.py:371-394), on random words at 256 x
+    512 and at 128 x 1024 (ppm_inputs), on every fuzz_ppm pattern, on its
+    streams cut short (the window clamp) and on the container cut by 3001
+    bytes, each against its plain version, exact; huff_scan timed at each
+    of those shapes but the truncated one (huff_timing: ms, device ms, ns
+    a symbol, registers, CTAs an SM, waves), ppm_decode at each but the
+    cut and truncated ones (ppm_timing: ms, device ms, ns a read, rows and
+    groups built beside the bound's, registers, CTAs an SM, waves), and
+    the phase's seconds (ppm_decode's apart);
 25. e2e_nlzc: ppm_tpu.decompress of that container must return the input
     and launch exactly huff_scan (its prior) and ppm_decode once; MB/s
     end to end and with the streams staged, the ratio, the host encode;
@@ -231,6 +235,15 @@ HUFF0 = dict(bytes=SHIP_BYTES, block_size=32768)  # the huff0 container default
 HUFF0_TRUNC = dict(bytes=256 << 10, block_size=4096)  # a short chain for the plain scan
 HUFF_BIG = dict(bytes=2 << 20, block_size=131072)  # huff_scan across pages
 NLZC_LAUNCHES = dict(huff_scan=1, ppm_decode=1)  # the prior, then the blocks
+# csrc/ppm_decode.cu's scheme (ppm_model): slots a chunk (the most rows it
+# can read, 2 tables x 32 lanes x 16 steps), the slots in shared memory,
+# and the stream words that fit it (the rest read device memory)
+PPM_SLOTS = 1024
+PPM_CACHE = 576
+PPM_SW_MAX = 6368
+PPM_HALVINGS = 10  # halvings that take any carry (at most 1023) to 0
+PPM_RANDOM = ((256, 512), (128, 1024))  # random words: the bench's shape, DEFAULT_BLOCK's
+PPM_W_32K = 8448  # words of a 32 KiB block's stream at ratio ~1.03 (past PPM_SW_MAX)
 RESEARCH_KERNELS = tuple(NLZC_LAUNCHES)
 # synthetic plane specs (PlaneSpec fields) swapped in for dst: the 4-row
 # spec of tests/test_wide.py and a 2-read one, read 1 keyed by row0 * 8 + y
@@ -1200,6 +1213,253 @@ def huff_model(streams, base_l, limit_l, offs, syms, T: int, K=None, page=None,
         j = np.arange(T - int(nout[bi]))
         at = np.where(j < 32, np.minimum(j, 63), 32 + (j - 32) % lam)
         out[bi, int(nout[bi]) :] = sr[np.asarray(walk)[at]]
+    return out
+
+
+def fuzz_ppm(seed: int, B: int = 4, block: int = 2048, names=None) -> dict:
+    """Inputs of _decode_blocks drawn from a seed, for the worst cases of
+    csrc/ppm_decode.cu, as staged numpy (words [B, W] int32, seg_lens [B,
+    32] int32, prior [2, 4096, 16] int32, steps) a pattern. Real streams
+    come from the port's encoder (encode_blocks) on slices of build_corpus
+    under P, the prior of B blocks of `block` bytes of it (build_prior, as
+    a container of 64 KiB or more ships), unless named otherwise:
+    - "text": those B blocks (steps 64 at the default);
+    - "random", "zero_words": text's segments, prior and W with random or
+      all-zero words (every row read in every chunk; every lane renorms
+      at every read, against one row);
+    - "short": two full blocks and one of 20 bytes (under 32: lanes
+      without a byte, a short last block);
+    - "long_segs": short's streams with every segment at or past steps
+      (lanes decode past their bytes, into the padding);
+    - "ragged_segs": text's stream, segment lengths from -2..steps + 3;
+    - "prior0", "prior255": text encoded under an all-0 prior (what a
+      short container ships) and an all-255 one (the largest totals);
+    - "zeros", "repetitive": the containers of tests/test_ppm_tpu.py at 4
+      KiB blocks (5,000 zero bytes: a short last block; 4,000 bytes of
+      "abcabcabd"), with no prior;
+    - "steps2", "steps16", "steps32": blocks of 64, 512 and 1024 bytes, the
+      smallest schedules (2; 2/2/4/8; then a 16);
+    - "cut40": text's streams cut to 40 words (the clamped window reads the
+      last word, which holds data);
+    - "truncated": text's streams with the last cut by 301 bytes, as a
+      container cut short.
+    names: the patterns to return (default all)."""
+    import numpy as np
+
+    from nlzm_tpu_torch.research import ppm_tpu
+
+    rng = np.random.default_rng(seed)
+    corpus = build_corpus(B * block + 8192)
+    start = int(rng.integers(0, 4096))
+    text = corpus[start : start + B * block]
+    cut = lambda data, bs: [data[i : i + bs] for i in range(0, len(data), bs)]
+    P = ppm_tpu.build_prior(*ppm_tpu._layout(cut(text, block))[:4])
+
+    def staged(args):
+        return tuple(a.numpy() for a in args[:3]) + (args[3],)
+
+    def under(data, bs, prior=P, trim=0):
+        streams = ppm_tpu.encode_blocks(cut(data, bs), prior)
+        streams[-1] = streams[-1][: len(streams[-1]) - trim]
+        return staged(ppm_tpu.stage_streams(streams, bs, len(data), prior, "cpu")[0])
+
+    def container(data, bs):
+        return staged(ppm_tpu.stage_container(ppm_tpu.compress(data, bs), "cpu")[0])
+
+    def words(fill):
+        w, seg, pr, steps = under(text, block)
+        return fill(w), seg, pr, steps
+
+    def segs(args, make):
+        w, seg, pr, steps = args
+        return w, make(seg.shape, steps).astype(np.int32), pr, steps
+
+    const = lambda v: np.full((2, ppm_tpu.ROWS, 16), v, np.int64)
+    short = text[: 2 * block + 20]
+    make = {
+        "text": lambda: under(text, block),
+        "random": lambda: words(lambda w: rng.integers(
+            -(1 << 31), 1 << 31, w.shape, np.int64).astype(np.int32)),
+        "zero_words": lambda: words(np.zeros_like),
+        "short": lambda: under(short, block),
+        "long_segs": lambda: segs(under(short, block), lambda sh, st: st + rng.integers(0, 6, sh)),
+        "ragged_segs": lambda: segs(under(text, block),
+                                    lambda sh, st: rng.integers(-2, st + 4, sh)),
+        "prior0": lambda: under(text, block, const(0)),
+        "prior255": lambda: under(text, block, const(255)),
+        "zeros": lambda: container(bytes(5000), 4096),
+        "repetitive": lambda: container((b"abcabcabd" * 600)[:4000], 4096),
+        "steps2": lambda: under(text[: 64 * B], 64),
+        "steps16": lambda: under(text[: 512 * B], 512),
+        "steps32": lambda: under(text[: 1024 * B], 1024),
+        "cut40": lambda: words(lambda w: np.ascontiguousarray(w[:, :40])),
+        "truncated": lambda: under(text, block, trim=301),
+    }
+    return {k: make[k]() for k in (names or make)}
+
+
+def ppm_quot(n, d):
+    """floor(n / d) as csrc/ppm_decode.cu's quot gets it (int64 numpy, n <
+    2^26, n / d < 2^14): the float32 of n times the float32 reciprocal of
+    d (both correctly rounded), truncated, then one step each way."""
+    import numpy as np
+
+    n, d = np.asarray(n, np.int64), np.asarray(d, np.int64)
+    q = (n.astype(np.float32) * (np.float32(1) / d.astype(np.float32))).astype(np.int64)
+    r = n - q * d
+    return q + (r >= d) - (r < 0)
+
+
+def ppm_model(words, seg_lens, prior, steps: int, cache_rows: int = PPM_CACHE, stats=None):
+    """A numpy model of csrc/ppm_decode.cu's scheme: [B, steps, 32] uint8 as
+    _decode_blocks. Carries K [B, 8192, 16] with a stamp a row (the chunk
+    + 1 of its last fold, -PPM_HALVINGS: never); chunk c builds from K >>
+    (c - stamp), read as 0 where c - stamp >= PPM_HALVINGS. At each read,
+    the live lanes whose (table, row) has no slot this chunk get slots,
+    distinct rows in lane order of their first lane (the kernel's leader
+    may be another lane of the row, which orders a batch's slots
+    otherwise: no output depends on it), and each such row is built: its
+    group's 16 per-symbol sums
+    (once a chunk a group), eff = K + gs // 2 + 8 * prior + 2, tot,
+    freq = 1 + ppm_quot(eff * 16368, tot + 1), fences by a cumulative sum
+    with the last at 2^14; slots below cache_rows are kept in one array
+    (the kernel's shared memory), the rest in another (its device
+    memory). A read takes its fences from its slot and logs (slot,
+    symbol). At each chunk's end but the last, each slot's row is folded:
+    K = (K >> (c + 1 - stamp)) + its counts, stamp c + 1; no other row is
+    written. Asserts the bounds the kernel's u16 tables and 32-bit
+    division rely on: K and every group sum <= 1023, tot + 1 <= 34,207,
+    eff * 16368 < 2^26, ppm_quot equal to floor division. stats (a dict,
+    if given) gets "rows" (slots built), "groups" (distinct groups summed,
+    chunk by chunk) and "spilled" (slots at or past cache_rows)."""
+    import numpy as np
+
+    from nlzm_tpu_torch.research import ppm_tpu
+
+    ROWS, L, M = ppm_tpu.ROWS, ppm_tpu.LANES, 0xFFFFFFFF
+    keys_n = 2 * ROWS
+    w = np.asarray(words).view(np.uint32).astype(np.int64)
+    B, W = w.shape
+    seg = np.asarray(seg_lens, np.int64)
+    pri = np.asarray(prior, np.int64).reshape(keys_n, 16)
+    assert 0 <= pri.min() and pri.max() <= 255
+    K = np.full((B, keys_n, 16), -1, np.int64)  # never read before a fold writes it
+    stamp = np.full((B, keys_n), -PPM_HALVINGS, np.int64)
+    halved = lambda k, sh: np.where(sh < PPM_HALVINGS, k >> np.clip(sh, 0, 31), 0)
+    spill_n = max(PPM_SLOTS - cache_rows, 1)
+    area = [np.zeros((B, cache_rows, 16), np.int64), np.zeros((B, spill_n, 16), np.int64)]
+    x = w[:, :L].copy()
+    cursor = np.full(B, 4 * L, np.int64)
+    prev = np.zeros((B, L), np.int64)
+    prev2 = np.zeros_like(prev)
+    out = np.zeros((B, steps, L), np.uint8)
+    bidx = np.arange(B)[:, None]
+    lower = np.tril(np.ones((L, L), bool), -1)  # [l, l2]: l2 < l
+    st_ = stats if stats is not None else {}
+    for k in ("rows", "groups", "spilled"):
+        st_.setdefault(k, 0)
+
+    def get(b, j):
+        inner = j < cache_rows
+        jc = np.clip(j, 0, cache_rows - 1)
+        js = np.clip(j - cache_rows, 0, spill_n - 1)
+        return np.where(inner[..., None], area[0][b, jc], area[1][b, js])
+
+    def put(b, j, v):
+        inner = j < cache_rows
+        area[0][b[inner], j[inner]] = v[inner]
+        area[1][b[~inner], j[~inner] - cache_rows] = v[~inner]
+
+    def build(b, j, key, c, gvalid, gsum):
+        g = key >> 4
+        rows16 = g[:, None] * 16 + np.arange(16)
+        kc = halved(K[b[:, None], rows16], (c - stamp[b[:, None], rows16])[..., None])
+        new = ~gvalid[b, g]
+        gs = np.where(new[:, None], kc.sum(1), gsum[b, g])
+        fresh = np.unique(b[new] * (keys_n // 16) + g[new])
+        st_["groups"] += len(fresh)
+        gsum[b[new], g[new]] = kc.sum(1)[new]
+        gvalid[b, g] = True
+        kr = kc[np.arange(len(key)), key & 15]
+        eff = kr + gs // 2 + ppm_tpu.PRIOR_W * pri[key] + ppm_tpu.BLEND
+        tot = eff.sum(1, keepdims=True)
+        assert kc.max(initial=0) <= 1023 and gs.max(initial=0) <= 1023
+        assert tot.max(initial=0) + 1 <= 34207 and (eff * 16368).max(initial=0) < 1 << 26
+        q = ppm_quot(eff * 16368, tot + 1)
+        assert np.array_equal(q, eff * 16368 // (tot + 1))
+        fen = np.cumsum(1 + q, 1)
+        fen[:, 15] = ppm_tpu.CDF_SCALE_TOTAL
+        put(b, j, fen)
+
+    s = 0
+    sched = ppm_tpu.chunk_schedule(steps)
+    for c, clen in enumerate(sched):
+        slot_of = np.full((B, keys_n), -1, np.int64)
+        skeys = np.zeros((B, PPM_SLOTS), np.int64)
+        nsl = np.zeros(B, np.int64)
+        gvalid = np.zeros((B, keys_n // 16), bool)
+        gsum = np.zeros((B, keys_n // 16, 16), np.int64)
+        log = []
+        for _ in range(clen):
+            a = s < seg
+            base = cursor >> 2
+            sym = []
+            for r in range(2):
+                key = ((prev << 4) | (prev2 >> 4)) if r == 0 else ROWS + ((sym[0] << 8) | prev)
+                sl = slot_of[bidx, key]
+                miss = a & (sl < 0)
+                if miss.any():
+                    same = (key[:, :, None] == key[:, None, :]) & miss[:, None, :]
+                    lead = miss & ~(same & lower).any(2)
+                    bi, li = np.nonzero(lead)
+                    j = nsl[bi] + (np.cumsum(lead, 1) - lead)[bi, li]
+                    kk = key[bi, li]
+                    slot_of[bi, kk] = j
+                    skeys[bi, j] = kk
+                    n = lead.sum(1)
+                    st_["rows"] += int(n.sum())
+                    st_["spilled"] += int(np.maximum(nsl + n - np.maximum(nsl, cache_rows), 0).sum())
+                    nsl += n
+                    build(bi, j, kk, c, gvalid, gsum)
+                    sl = slot_of[bidx, key]
+                F = get(np.broadcast_to(bidx, sl.shape), np.maximum(sl, 0))
+                f = x & 0x3FFF
+                y = (f[..., None] >= F[..., :15]).sum(-1)
+                start = np.where(y > 0, np.take_along_axis(F, np.maximum(y - 1, 0)[..., None], -1)[..., 0], 0)
+                end = np.take_along_axis(F, y[..., None], -1)[..., 0]
+                x2 = ((end - start) * (x >> 14) + (f - start)) & M
+                ren = a & (x2 < (1 << 16))
+                rr = ren.astype(np.int64)
+                rank = np.cumsum(rr, 1) - rr
+                h = np.clip((cursor[:, None] + 2 * rank - 4 * base[:, None]) >> 1, 0,
+                            ppm_tpu.WIN_H - 1)
+                wd = w[bidx, np.clip(base[:, None] + (h >> 1), 0, W - 1)]
+                half = (wd >> (16 * (h & 1))) & 0xFFFF
+                pair = ((half & 0xFF) << 8) | (half >> 8)
+                x = np.where(a, np.where(ren, ((x2 << 16) | pair) & M, x2), x)
+                cursor = cursor + 2 * rr.sum(1)
+                y = np.where(a, y, 0)
+                bi, li = np.nonzero(a)
+                log.append((bi, sl[bi, li], y[bi, li]))
+                sym.append(y)
+            byte = (sym[0] << 4) | sym[1]
+            prev2 = np.where(a, prev, prev2)
+            prev = np.where(a, byte, prev)
+            out[:, s] = byte
+            s += 1
+        if c + 1 == len(sched):
+            break
+        bi = np.repeat(np.arange(B), nsl)
+        j = np.concatenate([np.arange(n) for n in nsl]) if B else np.zeros(0, np.int64)
+        key = skeys[bi, j]
+        put(bi, j, halved(K[bi, key], (c + 1 - stamp[bi, key])[:, None]))
+        cnt = np.zeros((B, PPM_SLOTS, 16), np.int64)
+        for lb, ls, ly in log:
+            np.add.at(cnt, (lb, ls, ly), 1)
+        folded = get(bi, j) + cnt[bi, j]
+        assert folded.max(initial=0) <= 1023
+        K[bi, key] = folded
+        stamp[bi, key] = c + 1
     return out
 
 
@@ -2776,15 +3036,10 @@ def check_plane_decode(tally: Tally, container: bytes, device):
                    "plane_steps": [a[5] for a, _ in jobs], "synthetic": synth}
 
 
-def ppm_decode_work(args, out):
-    """_decode_blocks' (bytes, ops) on this run's data: words, segment
-    lengths and prior in, bytes out; per live byte 2 reads of ~40
-    operations (17 fence compares, selects, rANS state, rank, count).
-    A table row's fences matter only in a chunk that reads the row, and
-    a carry no chunk added to only halves (a shift, deferred until the
-    row is read), so the rebuild counts, per chunk and table, each row
-    the chunk reads (~10 operations for each of its 16 entries) and each
-    16-row group it reads from (the group sum: ~2 for each of 256)."""
+def ppm_rows(args, out):
+    """(rows, groups): the (table, row) pairs and the (table, 16-row
+    group) pairs each chunk of each block reads at a live step, summed
+    over chunks and blocks, from _decode_blocks' arguments and output."""
     import torch
 
     from nlzm_tpu_torch.research import ppm_tpu
@@ -2805,9 +3060,107 @@ def ppm_decode_work(args, out):
         k = ((key + t) * ppm_tpu.ROWS + row)[live]
         rows += int(torch.unique(k).numel())
         rgroups += int(torch.unique(k // ppm_tpu.GROUP).numel())
-    live_n = int(seg_lens.long().sum())
+    return rows, rgroups
+
+
+def ppm_decode_work(args, out):
+    """_decode_blocks' (bytes, ops) on this run's data: words, segment
+    lengths and prior in, bytes out; per live byte 2 reads of ~40
+    operations (17 fence compares, selects, rANS state, rank, count).
+    A table row's fences matter only in a chunk that reads the row, and
+    a carry no chunk added to only halves (a shift, deferred until the
+    row is read), so the rebuild counts, per chunk and table, each row
+    the chunk reads (~10 operations for each of its 16 entries) and each
+    16-row group it reads from (the group sum: ~2 for each of 256):
+    ppm_rows."""
+    words, seg_lens, prior, steps = args
+    B, L = seg_lens.shape
+    rows, rgroups = ppm_rows(args, out)
+    live_n = int(seg_lens.long().clamp(0, steps).sum())
     return (nbytes(words, seg_lens, prior) + B * steps * L,
-            2 * live_n * 40 + rows * 16 * 10 + rgroups * ppm_tpu.GROUP * 16 * 2)
+            2 * live_n * 40 + rows * 16 * 10 + rgroups * 16 * 16 * 2)
+
+
+def ppm_shape(B: int, W: int) -> dict:
+    """csrc/ppm_decode.cu's launch at B blocks of W words on this card
+    (nlzm_ppm_shape): threads a CTA, dynamic shared bytes, registers a
+    thread (cudaFuncGetAttributes), resident CTAs an SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), cache slots, whether
+    the stream is read from shared memory, and the waves of B CTAs."""
+    import ctypes
+
+    import torch
+
+    from nlzm_tpu_torch import _build
+    from nlzm_tpu_torch.research import ppm_tpu
+
+    out = (ctypes.c_int * 9)()
+    st = _build.entry("ppm_decode", "nlzm_ppm_shape", 1, 2)(
+        ctypes.addressof(out), B, W, torch.cuda.current_device(), None)
+    if st:
+        raise RuntimeError(f"nlzm_ppm_shape: CUDA error {st}")
+    threads, smem, regs, ctas, sms, sw_max, cache, tables, in_smem = out
+    if (sw_max, cache, tables) != (PPM_SW_MAX, PPM_CACHE, ppm_tpu.TABLES_INTS):
+        raise AssertionError(f"csrc/ppm_decode.cu's stream words, cache slots and tables ints "
+                             f"{(sw_max, cache, tables)} are not chip_smoke's")
+    return dict(threads=threads, smem_bytes=smem, registers=regs, ctas_per_sm=ctas,
+                cache_slots=cache, stream_in_smem=bool(in_smem),
+                waves=-(-B // (ctas * sms)) if ctas else None)
+
+
+def ppm_random(args, B: int, steps: int, W: int, seed: int):
+    """_decode_blocks arguments of random words: B blocks of W random words,
+    every lane's segment steps long (full blocks), args' prior."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    words = torch.randint(-(1 << 31), 1 << 31, (B, W), generator=g, dtype=torch.int64)
+    dev = args[0].device
+    return (words.to(torch.int32).to(dev), torch.full((B, 32), steps, dtype=torch.int32,
+                                                      device=dev), args[2], steps)
+
+
+def ppm_timing(args) -> dict:
+    """ppm_decode on these staged arrays: CUDA-event mean (ms), the kernel's
+    device time (kernel_device_ms), ns a read of one block's chain (steps x
+    2 reads), the rows and groups it built (its counters) beside the
+    bound's (ppm_rows), the rows built into device memory, the batches
+    (reads that built rows), its bound (ppm_decode_work) and the launch
+    shape (ppm_shape)."""
+    from nlzm_tpu_torch.research import ppm_tpu
+
+    B, W = args[0].shape
+    steps = args[3]
+    call = lambda: ppm_tpu._decode_blocks(*args)
+    out, built = ppm_tpu._decode_blocks_cuda(*args)
+    n = dict(zip(ppm_tpu.BUILT, built.sum(0).tolist()))
+    rows, groups = ppm_rows(args, out)
+    ms = timed_mean(call, KERNEL_REPS)
+    b_ms, b_by = bound(*ppm_decode_work(args, out))
+    return dict(blocks=B, W=W, steps=steps, ms=ms, device_ms=kernel_device_ms(call, "ppm"),
+                ns_per_read=ms * 1e6 / max(2 * steps, 1), rows_built=n["rows"],
+                groups_built=n["groups"], bound_rows=rows, bound_groups=groups,
+                group_sums=n["group_sums"], spilled_rows=n["spilled_rows"],
+                batches=n["batches"], bound_ms=b_ms,
+                bound_by=b_by, **ppm_shape(B, W))
+
+
+def ppm_inputs(pd, device):
+    """(label, _decode_blocks arguments on `device`) of every shape ppm_decode
+    is held and timed at beyond the bench pd: random words at PPM_RANDOM's
+    shapes (the bench's prior; at 256 x 512 its W, at 128 x 1024 PPM_W_32K,
+    past the shared-memory stream), then every fuzz_ppm(7) pattern, and
+    steps2's first block alone (1 x 2, the smallest launch)."""
+    import torch
+
+    for (B, steps), W in zip(PPM_RANDOM, (pd[0].shape[1], PPM_W_32K)):
+        yield f"random_{B}x{steps}", ppm_random(pd, B, steps, W, B)
+    for pat, st in fuzz_ppm(7).items():
+        yield pat, tuple(torch.as_tensor(a, device=device) for a in st[:3]) + (st[3],)
+        if pat == "steps2":  # the smallest launch: one block, two steps
+            yield "steps2_1x2", tuple(torch.as_tensor(a[:1], device=device)
+                                      for a in st[:2]) + (torch.as_tensor(st[2], device=device),
+                                                          st[3])
 
 
 def check_research(tally: Tally, data: bytes, hc: bytes, blob: bytes, device):
@@ -2815,10 +3168,12 @@ def check_research(tally: Tally, data: bytes, hc: bytes, blob: bytes, device):
     on a short one with a truncated payload, and on every huff_inputs
     shape (the NLZC prior of blob, random bytes, 128 KiB blocks, every
     fuzz_huff pattern), each timed (huff_timing); ppm_decode on the NLZC
-    container blob, on its streams cut to 40 words (the clamped window
-    reads the last word, which holds data) and on the blob cut short; each
-    against its plain version, exact, the first of each timed. Returns
-    shape info and the huff_scan timings."""
+    container blob (the tally's time), on every ppm_inputs shape (random
+    words at 256 x 512 and 128 x 1024, every fuzz_ppm pattern), each timed
+    (ppm_timing, the bench too), on its streams cut to 40 words (the
+    clamped window reads the last word, which holds data) and on the blob
+    cut short; each against its plain version, exact. Returns shape info,
+    the timings and ppm_decode's seconds."""
     from nlzm_tpu_torch.research import huff0, ppm_tpu
 
     st = huff0.stage_blocks(hc, *huff0._parse(hc), device)
@@ -2839,12 +3194,19 @@ def check_research(tally: Tally, data: bytes, hc: bytes, blob: bytes, device):
         huff[label] = huff_timing(args)
         del args
 
+    t0 = time.perf_counter()
     pd, _ = ppm_tpu.stage_container(blob, device)
     words, steps, nb = pd[0], pd[3], pd[0].shape[0]
     chunks = len(ppm_tpu.chunk_schedule(steps))
     work = ppm_decode_work(pd, ppm_tpu._decode_blocks(*pd))  # the decoded bytes, for the count
     tally.hold("ppm_decode", lambda: ppm_tpu._decode_blocks(*pd),
                lambda: ppm_tpu._decode_blocks_ref(*pd), reps_plain=1, work=work)
+    ppm = {"nlzc_256x512": ppm_timing(pd)}
+    for label, args in ppm_inputs(pd, device):
+        tally.hold("ppm_decode", lambda: ppm_tpu._decode_blocks(*args),
+                   lambda: ppm_tpu._decode_blocks_ref(*args), timed=False)
+        ppm[label] = ppm_timing(args)
+        del args
     cut = (words[:, :40].contiguous(),) + pd[1:]
     tally.hold("ppm_decode", lambda: ppm_tpu._decode_blocks(*cut),
                lambda: ppm_tpu._decode_blocks_ref(*cut), timed=False)
@@ -2853,7 +3215,8 @@ def check_research(tally: Tally, data: bytes, hc: bytes, blob: bytes, device):
                lambda: ppm_tpu._decode_blocks_ref(*tw), timed=False)
     return {"huff0": {"blocks": B, "steps": T}, "huff0_truncated": {"blocks": ts[0].shape[0]},
             "nlzc": {"blocks": nb, "steps": steps, "chunks": chunks, "words": words.shape[1]},
-            "huff_scan_timing": huff}
+            "huff_scan_timing": huff, "ppm_decode_timing": ppm,
+            "ppm_decode_seconds": time.perf_counter() - t0}
 
 
 def run_research(tally: Tally, data: bytes, device, card: str):
@@ -2872,8 +3235,10 @@ def run_research(tally: Tally, data: bytes, device, card: str):
     emit({"phase": "kernels_research", "ok": True, **shape,
           "kernels": tally.summary(RESEARCH_KERNELS), "seconds": time.perf_counter() - t0,
           "timing": f"CUDA events, mean of {KERNEL_REPS} back-to-back calls; plain: 1 call "
-                    f"after its comparison call; huff_scan_timing: device ms from "
-                    f"torch.profiler, ns a symbol of the [B, T] output, registers, CTAs an SM "
+                    f"after its comparison call; huff_scan_timing, ppm_decode_timing: device "
+                    f"ms from torch.profiler, ns a symbol of the [B, T] output (huff_scan) or "
+                    f"a read of a block's chain (ppm_decode), rows and groups built from the "
+                    f"kernel's counters beside the bound's (ppm_rows), registers, CTAs an SM "
                     f"and waves from the CUDA runtime", "card": card})
 
     by_path = {}

@@ -336,9 +336,24 @@ def _tables_of(carry, prior):
     return _build_cdf(carry + gs // 2 + PRIOR_W * prior + BLEND, 16)
 
 
+def _check_prior(prior) -> None:
+    """Raise ValueError unless every prior value is in 0..255 (one
+    torch.aminmax). A container's prior is u8 (decode_prior), and the
+    kernel's u16 tables and 32-bit division hold for that domain; past it
+    JAX's int32 sums wrap and tot + 1 can reach 0, whose quotient XLA
+    leaves undefined, so there is no single answer to match."""
+    if prior.numel():
+        lo, hi = torch.aminmax(prior)
+        if bool((lo < 0) | (hi > 255)):  # one copy back
+            raise ValueError("ppm_decode: prior values must be in 0..255")
+
+
 def _decode_blocks_ref(words, seg_lens, prior, steps: int):
     """Plain version of _decode_blocks: one loop iteration per step and
-    read, blocks and lanes as tensors, u32 states carried as int64."""
+    read, blocks and lanes as tensors, u32 states carried as int64; every
+    chunk rebuilds every row of both tables, as JAX does. Raises
+    ValueError for a prior outside 0..255."""
+    _check_prior(prior)
     B, W = words.shape
     dev = words.device
     w = words.long() & _U32
@@ -395,20 +410,38 @@ def _decode_blocks_ref(words, seg_lens, prior, steps: int):
     return out
 
 
+# csrc/ppm_decode.cu's TABLES_INTS: a block's tables scratch in int32, the
+# slots built past the shared-memory cache (1024 x 16 u16) and its counters
+TABLES_INTS = 1024 * 16 // 2 + 8
+BUILT = ("rows", "groups", "group_sums", "batches", "spilled_rows")
+
+
 def _decode_blocks(words, seg_lens, prior, steps: int):
     """Decode every block's 32 lanes in lockstep -> bytes [B, steps, 32]
     uint8 (nlzm_tpu's _decode_blocks gives the same values as int32).
 
     words [B, W] int32 (u32 bits, W >= 32: the first 32 words are the
-    lane seeds); seg_lens [B, 32] int32; prior [2, ROWS, 16] int32;
-    steps a sum of chunk_schedule. A lane at or past its segment length
-    emits 0. The renorm pair of a lane is the big-endian u16 at byte
-    cursor + 2 * rank of its block's stream (rank: the lane's place among
-    the block's renorming lanes), read from a window of 34 words clamped
-    to the stream as JAX clamps it.
+    lane seeds); seg_lens [B, 32] int32; prior [2, ROWS, 16] int32, every
+    value in 0..255 (else ValueError); steps a sum of chunk_schedule. A
+    lane at or past its segment length emits 0. The renorm pair of a lane
+    is the big-endian u16 at byte cursor + 2 * rank of its block's stream
+    (rank: the lane's place among the block's renorming lanes), read from
+    a window of 34 words clamped to the stream as JAX clamps it.
     """
     if words.device.type == "cpu":
         return _decode_blocks_ref(words, seg_lens, prior, steps)
+    return _decode_blocks_cuda(words, seg_lens, prior, steps)[0]
+
+
+def _decode_blocks_cuda(words, seg_lens, prior, steps: int):
+    """_decode_blocks on CUDA tensors: csrc/ppm_decode.cu, one launch ->
+    (out, built): built [B, len(BUILT)] int32, each block's counters of
+    the launch (rows built, distinct groups summed, group sums, batches,
+    rows built into device memory)."""
+    _check_prior(prior)
+    sched = chunk_schedule(steps)
+    if sum(sched) != steps:  # the kernel writes every step of the schedule
+        raise ValueError(f"ppm_decode: steps {steps} is not a sum of chunk_schedule")
     _build.check_cuda("ppm_decode", words, seg_lens, prior)
     B, W = words.shape
     if (words.dtype != torch.int32 or W < LANES or seg_lens.dtype != torch.int32
@@ -417,16 +450,16 @@ def _decode_blocks(words, seg_lens, prior, steps: int):
         raise ValueError("ppm_decode: words [B,W>=32] int32, seg_lens [B,32] int32, prior "
                          "[2,4096,16] int32")
     dev = words.device
-    sched = torch.tensor(chunk_schedule(steps), dtype=torch.int32, device=dev)
-    carry = torch.empty(B, 2 * ROWS, 16, dtype=torch.int32, device=dev)
-    tables = torch.empty(B, 2 * ROWS, 17, dtype=torch.int32, device=dev)
+    sched = torch.tensor(sched, dtype=torch.int32, device=dev)
+    carry = torch.empty(B, 2 * ROWS, 16, dtype=torch.int16, device=dev)
+    tables = torch.empty(B, TABLES_INTS, dtype=torch.int32, device=dev)
     out = torch.empty(B, steps, LANES, dtype=torch.uint8, device=dev)
     fn = _build.entry("ppm_decode", "nlzm_ppm_decode", 7, 4)
     _build.launch(fn, [words.data_ptr(), seg_lens.data_ptr(), prior.data_ptr(), sched.data_ptr(),
                        carry.data_ptr(), tables.data_ptr(), out.data_ptr()],
                   [B, W, steps, sched.numel()], dev)
     _decode_blocks.launches += 1
-    return out
+    return out, tables[:, TABLES_INTS - 8 : TABLES_INTS - 8 + len(BUILT)]
 
 
 _decode_blocks.launches = 0

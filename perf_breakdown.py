@@ -2,7 +2,7 @@
 """Where the time of one container decode, and of one device encode,
 goes on one GPU.
 
-    python3 perf_breakdown.py
+    python3 perf_breakdown.py [CASE ...]
 
 Decodes the 8 MB bench corpus (chip_smoke.build_corpus) from container
 bytes in host memory, at the wide shipping config and at the bench's v1
@@ -19,13 +19,16 @@ stage, with a torch.cuda.synchronize() at every boundary, min and median
 over REPS runs. Then one decode of each, and one encode_container(engine=
 "device") of each profile, under torch.profiler: device time by kernel,
 and the device's busy share of the wall time. Prints one JSON line per
-measurement and the card line of nvidia-smi. Needs a CUDA device;
-imports the port and chip_smoke.py only.
+measurement and the card line of nvidia-smi. CASE names limit the run to
+those cases (wide_ship, v1_bench, wide_greedy_encode, wide_optimal_encode,
+v1_device_encode, v1_optimal_encode, nlzc_decode, huff0_decode; default
+all). Needs a CUDA device; imports the port and chip_smoke.py only.
 """
 
 import json
 import re
 import statistics
+import sys
 import time
 
 import numpy as np
@@ -210,6 +213,8 @@ def nlzc_stages(blob: bytes, data: bytes, dev) -> dict:
     c.lap("decode_prior (huff0 device decode: tables, upload, huff_scan, copy back)")
     args, layout = ppm_tpu.stage_streams(streams, block_size, total_len, prior, dev)
     c.lap("stage_streams (host staging + upload)")
+    ppm_tpu._check_prior(args[2])
+    c.lap("the prior's 0..255 check alone (torch.aminmax), for comparison")
     out = ppm_tpu._decode_blocks(*args)
     c.lap("_decode_blocks (ppm_decode)")
     plain = ppm_tpu.reassemble(out, layout)
@@ -302,14 +307,18 @@ def main() -> int:
     card = chip_smoke.card_line()
     corpus = chip_smoke.build_corpus(max(chip_smoke.SHIP_BYTES, chip_smoke.V1_ENC_BYTES))
     data, v1_data = corpus[: chip_smoke.SHIP_BYTES], corpus[: chip_smoke.V1_ENC_BYTES]
+    want = set(sys.argv[1:])
     cases = {
-        "wide_ship": (blocks.encode_container(data, parser="optimal", profile="wide",
-                                              **chip_smoke.SHIP), wide_stages),
-        "v1_bench": (blocks.encode_container(data, **chip_smoke.V1_BENCH), v1_stages),
+        "wide_ship": (lambda: blocks.encode_container(data, parser="optimal", profile="wide",
+                                                      **chip_smoke.SHIP), wide_stages),
+        "v1_bench": (lambda: blocks.encode_container(data, **chip_smoke.V1_BENCH), v1_stages),
     }
-    runs_of = {name: (lambda c=c, fn=fn: fn(c, data, dev),
-                      lambda c=c: blocks.decode_container(c, device=dev), len(data))
-               for name, (c, fn) in cases.items()}
+    runs_of = {}
+    for name, (make, fn) in cases.items():
+        if not want or name in want:
+            c = make()
+            runs_of[name] = (lambda c=c, fn=fn: fn(c, data, dev),
+                             lambda c=c: blocks.decode_container(c, device=dev), len(data))
     for name, cfg in (("wide_greedy_encode", chip_smoke.ENC_GREEDY),
                       ("wide_optimal_encode", chip_smoke.WIDE_OPT)):
         runs_of[name] = (
@@ -322,15 +331,19 @@ def main() -> int:
             lambda cfg=cfg: v1_encode_stages(v1_data, dev, cfg),
             lambda cfg=cfg: blocks.encode_container(v1_data, device=dev, engine="device", **cfg),
             len(v1_data))
-    ndata = corpus[: chip_smoke.NLZC["bytes"]]
-    nblob = ppm_tpu.compress(ndata, chip_smoke.NLZC["block_size"])
-    runs_of["nlzc_decode"] = (lambda: nlzc_stages(nblob, ndata, dev),
-                              lambda: ppm_tpu.decompress(nblob, device=dev), len(ndata))
-    hdata = corpus[: chip_smoke.HUFF0["bytes"]]
-    hblob = huff0.encode(hdata, chip_smoke.HUFF0["block_size"])
-    runs_of["huff0_decode"] = (lambda: huff0_stages(hblob, hdata, dev),
-                               lambda: huff0.decode(hblob, device=dev), len(hdata))
+    if not want or "nlzc_decode" in want:
+        ndata = corpus[: chip_smoke.NLZC["bytes"]]
+        nblob = ppm_tpu.compress(ndata, chip_smoke.NLZC["block_size"])
+        runs_of["nlzc_decode"] = (lambda: nlzc_stages(nblob, ndata, dev),
+                                  lambda: ppm_tpu.decompress(nblob, device=dev), len(ndata))
+    if not want or "huff0_decode" in want:
+        hdata = corpus[: chip_smoke.HUFF0["bytes"]]
+        hblob = huff0.encode(hdata, chip_smoke.HUFF0["block_size"])
+        runs_of["huff0_decode"] = (lambda: huff0_stages(hblob, hdata, dev),
+                                   lambda: huff0.decode(hblob, device=dev), len(hdata))
     for name, (stages_fn, whole, nbytes) in runs_of.items():
+        if want and name not in want:
+            continue
         stages_fn()  # warm: kernel builds, allocator
         runs = [stages_fn() for _ in range(REPS)]
         stages = {k: {"min": min(r[k] for r in runs),
