@@ -107,7 +107,15 @@ card and fails (nonzero exit, no result line) on anything wrong:
     against its plain version, exact, on every fuzz_spans pattern at 16 x
     4096 (at its frame cap and at caps 1024, 101 and 37) and on dense spans
     at 1024 x 8192, each timed (rans_timing, with the kernel's device time
-    from torch.profiler);
+    from torch.profiler); then phase kernels_fm: find_matches against its
+    plain version, exact, at 1024 x 8192 (one and three candidates), one
+    2 MiB file bucket (256 x 8192, both), 8 x 131072 (three: positions in
+    device memory) and every fuzz_matches pattern (zeros, runs, random
+    bytes, one-hash collisions, ragged blocks and n_valid outside 0..N,
+    reaches 1 to past N, N from 700 to 131072, one to four candidates;
+    runs_short also at six) and 1 x 700, each timed beside the wide
+    encodes' 245 x 32768 (fm_timing: ms, device ms, ns a position,
+    registers, CTAs an SM, waves);
 20. e2e_enc_v1_opt: encode_container(parser="optimal", engine="device")
     of the 8 MiB at 8 KiB blocks, checked as 17; MB/s, the ratio and 17's
     greedy ratio;
@@ -245,6 +253,17 @@ PPM_HALVINGS = 10  # halvings that take any carry (at most 1023) to 0
 PPM_RANDOM = ((256, 512), (128, 1024))  # random words: the bench's shape, DEFAULT_BLOCK's
 PPM_W_32K = 8448  # words of a 32 KiB block's stream at ratio ~1.03 (past PPM_SW_MAX)
 RESEARCH_KERNELS = tuple(NLZC_LAUNCHES)
+# csrc/find_matches.cu's scheme (fm_model): items a lane at most (threads a
+# CTA: fm_threads), and under FM_FEW_BLOCKS blocks, zero bytes held past N,
+# and the largest block whose positions sit in shared memory (past it,
+# device memory)
+FM_ITEMS = 16
+FM_FEW_ITEMS = 4
+FM_FEW_BLOCKS = 264
+FM_PAD = 272
+FM_SHORT = 16  # bytes a lane compares alone; past them the warp searches together
+FM_SMEM_MAX_N = 32768
+MAX_MATCH = 264  # a match's longest length (encode_ops.MAX_MLEN)
 # synthetic plane specs (PlaneSpec fields) swapped in for dst: the 4-row
 # spec of tests/test_wide.py and a 2-read one, read 1 keyed by row0 * 8 + y
 SYNTH_PLANES = {"four_row": ("dst", 8, 1, (16,), (4,)), "two_read": ("dst", 24, 2, (8, 16), (4, 32))}
@@ -1463,6 +1482,295 @@ def ppm_model(words, seg_lens, prior, steps: int, cache_rows: int = PPM_CACHE, s
     return out
 
 
+def fuzz_matches(seed: int, card: bool = False, names=None) -> dict:
+    """Inputs of find_matches drawn from a seed, for the worst cases of
+    csrc/find_matches.cu: (data [B, N] uint8, n_valid [B] int32, reach, C)
+    a pattern. At 4 x 4096, reach 4095, three candidates unless named
+    otherwise:
+    - "text": blocks of build_corpus; "random": random bytes (~N distinct
+      hashes, lengths mostly 0); "zeros": one hash group of N, every length
+      264 up to the tail;
+    - "runs_short", "runs_long": a random unit of period 1, 2, 3, 4 and of
+      7, 264, 265 and 9 repeated, then random bytes from 3/4 of the block;
+    - "collisions": distinct words that share one 16-bit hash (from the
+      hash's inverse), aligned, one to three bytes apart, and with true
+      repeats among them;
+    - "ragged_a", "ragged_b": zero padding past n_valid 4096, 0, 1, 2 and
+      3, 4096, 4096, 1234 (a short last block);
+    - "nvalid_wrap": random 2-bit bytes at n_valid N + 100, -5, -2^31 and
+      2^31 - 1 (the limit max(n_valid - p, 0) wraps in int32);
+    - "reach1" (two candidates), "reach2" (one), "reach_far" (N + 1000, four
+      candidates): random bits, text and runs of period 1 and 2 at 4 x 700;
+      "reach300" (one candidate): random 2-bit bytes and text;
+    - "n4097" and "n8192" (the v1 block; one candidate each), "rle"
+      (tests/test_wide.py's RLE data, n_valid 24000, at 32768, the largest
+      block with positions in shared memory), "n32769" (two candidates) and
+      "n40000" (one candidate): past it, positions in device memory;
+    - card=True adds "n131072" (2 x 131072, text and zeros: the format's
+      block cap), too big for the CPU tests.
+    names: the patterns to return (default all)."""
+    import numpy as np
+
+    from nlzm_tpu_torch.constants import HASH4_MULT
+
+    rng = np.random.default_rng(seed)
+    corpus = np.frombuffer(build_corpus(1 << 18), np.uint8)
+    B, N = 4, 4096
+
+    def text(b, n):
+        start = rng.integers(0, len(corpus) - b * n, b)
+        return np.stack([corpus[s : s + n] for s in start])
+
+    def full(data, reach=None, C=3, n_valid=None):
+        b, n = data.shape
+        nv = np.full(b, n, np.int64) if n_valid is None else np.asarray(n_valid, np.int64)
+        return (np.ascontiguousarray(data, np.uint8), nv.astype(np.int32),
+                n - 1 if reach is None else reach, C)
+
+    def runs(periods):
+        rows = []
+        for k in periods:
+            unit = rng.integers(0, 256, k, np.uint8)
+            row = np.resize(unit, N)
+            cut = 3 * N // 4
+            row[cut:] = rng.integers(0, 256, N - cut, np.uint8)
+            rows.append(row)
+        return np.stack(rows)
+
+    def collisions():
+        # w * HASH4_MULT mod 2^32 in [h << 16, (h + 1) << 16): 65536 words a
+        # hash, w = y * HASH4_MULT^-1 mod 2^32
+        inv = pow(HASH4_MULT, -1, 1 << 32)
+        h = int(rng.integers(0, 1 << 16))
+        y = (h << 16) + rng.permutation(1 << 16)[: 4 * N].astype(np.uint64)
+        words = (y * np.uint64(inv)) & np.uint64(0xFFFFFFFF)
+        wb = words.astype("<u4").view(np.uint8).reshape(-1, 4)
+        rows = [wb[:1024].reshape(-1)]
+        gaps = []
+        for i in range(1024):
+            gaps.append(wb[1024 + i])
+            gaps.append(rng.integers(0, 256, int(rng.integers(1, 4)), np.uint8))
+        rows.append(np.concatenate(gaps)[:N])
+        rep = wb[2048:2048 + 64][rng.integers(0, 64, 1024)]  # true repeats among them
+        rows.append(rep.reshape(-1))
+        mixed = wb[3072:4096].copy()
+        mixed[::3] = wb[3072]
+        rows.append(mixed.reshape(-1))
+        return np.stack(rows)
+
+    bits2 = lambda b, n: rng.integers(0, 4, (b, n), np.uint8)
+    # short distances: random bits, text, runs of period 1 and 2
+    near = lambda: np.concatenate([rng.integers(0, 2, (1, 700), np.uint8), text(1, 700),
+                                   np.resize(rng.integers(0, 256, 1, np.uint8), (1, 700)),
+                                   np.resize(rng.integers(0, 256, 2, np.uint8), (1, 700))])
+
+    def padded(data, nv):
+        data = data.copy()
+        for b, n in enumerate(nv):
+            data[b, max(n, 0):] = 0
+        return full(data, n_valid=nv)
+
+    rle = np.frombuffer((b"\x00" * 5000) + (b"ab" * 4000) + (b"xyz" * 3000) + b"tail" * 500,
+                        np.uint8)
+    make = {
+        "text": lambda: full(text(B, N)),
+        "random": lambda: full(rng.integers(0, 256, (B, N), np.uint8)),
+        "zeros": lambda: full(np.zeros((B, N), np.uint8)),
+        "runs_short": lambda: full(runs((1, 2, 3, 4))),
+        "runs_long": lambda: full(runs((7, 264, 265, 9))),
+        "collisions": lambda: full(collisions()),
+        "ragged_a": lambda: padded(text(B, N), (N, 0, 1, 2)),
+        "ragged_b": lambda: padded(text(B, N), (3, N, N, 1234)),
+        "nvalid_wrap": lambda: full(bits2(B, N), n_valid=(N + 100, -5, -(1 << 31), (1 << 31) - 1)),
+        "reach1": lambda: full(near(), 1, 2),
+        "reach2": lambda: full(near(), 2, 1),
+        "reach300": lambda: full(np.concatenate([bits2(2, N), text(2, N)]), 300, 1),
+        "reach_far": lambda: full(near(), 1700, 4),
+        "n4097": lambda: full(text(4, 4097), C=1),
+        "n8192": lambda: full(np.concatenate([text(3, 8192), bits2(1, 8192)]), C=1),
+        "rle": lambda: full(np.pad(rle, (0, 32768 - len(rle)))[None], n_valid=(len(rle),)),
+        "n32769": lambda: full(text(1, 32769), C=2),
+        "n40000": lambda: full(np.concatenate([text(1, 30000), np.zeros((1, 10000), np.uint8)], 1),
+                               C=1),
+    }
+    if card:
+        make["n131072"] = lambda: full(np.concatenate([text(1, 131072),
+                                                       np.zeros((1, 131072), np.uint8)]))
+    return {k: make[k]() for k in (names or make)}
+
+
+def fm_threads(B: int, N: int) -> int:
+    """csrc/find_matches.cu's threads a CTA for B blocks of N bytes."""
+    t = -(-N // (FM_FEW_ITEMS if B < FM_FEW_BLOCKS else FM_ITEMS))
+    return 32 if t <= 32 else (1024 if t >= 1024 else (t + 31) // 32 * 32)
+
+
+def fm_words(data):
+    """The block zero-padded past N as the kernel holds it (FM_PAD zero
+    bytes, to 16), as little-endian u32 words [B, W] (uint64)."""
+    import numpy as np
+
+    B, N = data.shape
+    width = (N + FM_PAD + 15) // 16 * 16
+    padded = np.zeros((B, width), np.uint8)
+    padded[:, :N] = data
+    return padded.view("<u4").astype(np.uint64)
+
+
+def fm_word(W, b, x):
+    """The little-endian word at byte offsets x of blocks b: two aligned
+    words and a funnel shift."""
+    import numpy as np
+
+    lo, hi = W[b, x >> 2], W[b, (x >> 2) + 1]
+    return ((hi << np.uint64(32) | lo) >> ((x & 3) * 8).astype(np.uint64)) & np.uint64(0xFFFFFFFF)
+
+
+def fm_first_byte(x):
+    """The index of the lowest nonzero byte of each nonzero u32 x (__ffs)."""
+    import numpy as np
+
+    low = (x & (~x + np.uint64(1))).astype(np.float64)
+    return np.log2(low).astype(np.int64) >> 3
+
+
+def fm_long(W, bi, pi, d):
+    """Lengths of the candidates equal through FM_SHORT bytes, as the
+    kernel's long_prefix finds them: the positions of a warp (32 aligned
+    ones), lowest first, with every alive one of the lowest's distance d;
+    the warp compares 4 bytes a lane, 128 a step, over [p_s + FM_SHORT,
+    p_last + 264), and each takes the first mismatch from its own p +
+    FM_SHORT."""
+    import numpy as np
+
+    out = np.full(bi.size, MAX_MATCH, np.int64)
+    steps = -(-(31 + MAX_MATCH - FM_SHORT) // 128)
+    warp = bi * (1 << 20) + (pi >> 5)
+    order = np.argsort(warp, kind="stable")
+    cuts = np.flatnonzero(np.diff(warp[order])) + 1
+    for todo in np.split(order, cuts) if order.size else ():
+        while todo.size:
+            s = todo[np.argmin(pi[todo])]
+            group = todo[d[todo] == d[s]]
+            base, end = pi[s] + FM_SHORT, pi[group].max() + MAX_MATCH
+            y = base + 4 * np.arange(32 * steps)  # word jj = 32 j + lane
+            xs = np.where(y < end, fm_word(W, bi[s], np.minimum(y, end))
+                          ^ fm_word(W, bi[s], np.minimum(y, end) - d[s]), np.uint64(0))
+            r = pi[group] - pi[s]  # bytes into the range; in word c < 8
+            c = r >> 2
+            xc = xs[c] & (np.uint64(0xFFFFFFFF) << (8 * (r & 3)).astype(np.uint64))
+            nz = np.flatnonzero(xs)
+            at = np.searchsorted(nz, c + 1)  # the first word past c with a mismatch
+            cc = np.where(xc != 0, c, nz[np.minimum(at, max(nz.size - 1, 0))] if nz.size else 0)
+            x = np.where(xc != 0, xc, xs[cc])
+            found = (xc != 0) | (at < nz.size)
+            m = 4 * cc + fm_first_byte(np.where(found, x, np.uint64(1)))
+            out[group] = np.where(found, np.minimum(FM_SHORT + m - r, MAX_MATCH), MAX_MATCH)
+            todo = todo[d[todo] != d[s]]
+    return out
+
+
+def fm_model(data, n_valid, reach: int, C: int):
+    """A numpy model of csrc/find_matches.cu's scheme: (delta, mlen) int32
+    [B, N, C] ([B, N] at C = 1) as find_matches. Warp w of fm_threads(B,
+    N) owns items [32 R w, 32 R (w + 1)), R = ceil(N / threads).
+    - Pass 1: per-warp counts of the hash's low byte, offsets by an
+      exclusive sum in digit-major order, an item's rank its offset plus the
+      warp's earlier items with its digit (the rounds' lower peers and the
+      running count): `order`, positions by (low byte, position).
+    - Pass 2 over `order`: an item's predecessor is the warp's previous item
+      with its high byte, else the last such item of the nearest earlier
+      warp (low byte << 24 | position, carried forward); prev[pos] is it
+      when the low bytes agree.
+    - The chain prev^k, ended by the first candidate out of reach; lengths a
+      word at a time over the zero-padded block (fm_word), the first unequal
+      byte from the XOR's lowest set bit, capped at 264 and at max(n_valid
+      - p, 0) wrapped in int32."""
+    import numpy as np
+
+    from nlzm_tpu_torch.constants import HASH4_MULT
+
+    data = np.asarray(data, np.uint8)
+    B, N = data.shape
+    T = fm_threads(B, N)
+    NW, R = T // 32, -(-N // T)
+    W = fm_words(data)
+    bb = np.repeat(np.arange(B), N).reshape(B, N)
+    j = np.broadcast_to(np.arange(N), (B, N))
+    warp = j // (32 * R)
+
+    def hashes(pos):
+        return ((fm_word(W, bb, pos) * np.uint64(HASH4_MULT)) & np.uint64(0xFFFFFFFF)) >> np.uint64(16)
+
+    def warp_ranks(key):
+        """An item's rank among the earlier items of its warp with its
+        key, the flat index of the warp's previous one (-1: none), and
+        whether it is the warp's last."""
+        flat = ((bb * NW + warp) * 256 + key).reshape(-1)
+        idx = np.argsort(flat, kind="stable")
+        sk = flat[idx]
+        same = sk[1:] == sk[:-1]
+        start = np.r_[0, np.flatnonzero(~same) + 1]
+        first = np.repeat(start, np.diff(np.r_[start, sk.size]))
+        rank, before = np.empty(sk.size, np.int64), np.full(sk.size, -1, np.int64)
+        is_last = np.ones(sk.size, bool)
+        rank[idx] = np.arange(sk.size) - first
+        before[idx[1:]] = np.where(same, idx[:-1], -1)
+        is_last[idx[:-1]] = ~same
+        return rank.reshape(B, N), before.reshape(B, N), is_last.reshape(B, N)
+
+    # pass 1
+    lo = (hashes(j) & np.uint64(255)).astype(np.int64)
+    counts = np.zeros((B, 256, NW), np.int64)
+    np.add.at(counts, (bb, lo, warp), 1)
+    flat = counts.reshape(B, -1)
+    offsets = (np.cumsum(flat, 1) - flat).reshape(B, 256, NW)
+    rank, _, _ = warp_ranks(lo)
+    dest = offsets[bb, lo, warp] + rank
+    order = np.full((B, N), -1, np.int64)
+    order[bb, dest] = j
+    assert (np.sort(order, 1) == j).all(), "pass 1 ranks are no permutation"
+
+    # pass 2
+    h2 = hashes(order)
+    hi, lo2 = (h2 >> np.uint64(8)).astype(np.int64), (h2 & np.uint64(255)).astype(np.int64)
+    item = lo2 << 24 | order
+    _, before, is_last = warp_ranks(hi)
+    last = np.full((B, NW, 256), -1, np.int64)
+    last[bb[is_last], warp[is_last], hi[is_last]] = item[is_last]  # the warp's last a digit
+    carried = np.full((B, NW, 256), -1, np.int64)
+    for w in range(1, NW):
+        carried[:, w] = np.where(last[:, w - 1] >= 0, last[:, w - 1], carried[:, w - 1])
+    pred = np.where(before >= 0, item.reshape(-1)[np.maximum(before, 0)].reshape(B, N),
+                    carried[bb, warp, hi])
+    prev = np.full((B, N), -1, np.int64)
+    prev[bb, order] = np.where((pred >= 0) & (pred >> 24 == lo2), pred & 0xFFFFFF, -1)
+
+    # the chain and the lengths
+    lim = np.maximum((np.asarray(n_valid, np.int64)[:, None] - j + (1 << 31)) % (1 << 32)
+                     - (1 << 31), 0)
+    D = np.zeros((B, N, C), np.int64)
+    L = np.zeros((B, N, C), np.int64)
+    q = prev
+    for k in range(C):
+        ok = (q >= 0) & (j - q <= reach)
+        bi, pi = np.nonzero(ok)
+        qi = q[bi, pi]
+        n = np.zeros(bi.size, np.int64)
+        alive = np.ones(bi.size, bool)
+        for w4 in range(0, FM_SHORT, 4):  # a lane alone: the first FM_SHORT bytes
+            x = fm_word(W, bi, pi + w4) ^ fm_word(W, bi, qi + w4)
+            hit = alive & (x != 0)
+            n[hit] = w4 + fm_first_byte(x[hit])
+            alive &= ~hit
+        n[alive] = fm_long(W, bi[alive], pi[alive], pi[alive] - qi[alive])
+        D[bi, pi, k] = pi - qi
+        L[bi, pi, k] = np.minimum(n, lim[bi, pi])
+        q = np.where(ok, prev[bb, np.maximum(q, 0)], -1)
+    D, L = D.astype(np.int32), L.astype(np.int32)
+    return (D[..., 0], L[..., 0]) if C == 1 else (D, L)
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -1962,23 +2270,14 @@ def check_kernels_enc(tally: Tally, data: bytes, device):
     dt, nvt = torch.as_tensor(arr, device=device), torch.as_tensor(nv, device=device)
     B = dt.shape[0]
     reach = (1 << ENC_HIST_BITS) - 1
-    log_n = (N - 1).bit_length()
-
-    def fm_work(delta, mlen):
-        # hash and key ~12 operations a position, log2 N compares to group
-        # it, 2 a byte compared (each candidate's length + 1)
-        cands = int(torch.count_nonzero(delta))
-        return (nbytes(dt, nvt, delta, mlen),
-                B * N * (12 + log_n) + 2 * (int(mlen.long().sum()) + cands))
-
     delta, mlen = eo.find_matches(dt, nvt, reach)  # for the work count
     delta, mlen = tally.hold("find_matches", lambda: eo.find_matches(dt, nvt, reach),
                              lambda: eo.find_matches_ref(dt, nvt, reach), reps_plain=3,
-                             work=fm_work(delta, mlen))
+                             work=fm_work(dt, nvt, delta, mlen))
     d3, m3 = eo.find_matches(dt, nvt, reach, 3)
     tally.hold("find_matches_c3", lambda: eo.find_matches(dt, nvt, reach, 3),
                lambda: eo.find_matches_ref(dt, nvt, reach, 3), reps_plain=3,
-               work=fm_work(d3, m3))
+               work=fm_work(dt, nvt, d3, m3))
     del d3, m3
     T = (N + 255) // 256 * 256
     gc = (dt, delta, mlen, nvt, T)
@@ -2671,6 +2970,114 @@ def rans_timing(spans, cap: int) -> dict:
                 device_ms=kernel_device_ms(call, "rans"),
                 ns_per_step=ms * 1e6 / max(longest / 4, 1), bound_ms=b_ms, bound_by=b_by,
                 **rans_shape(B))
+
+
+def fm_work(dt, nvt, delta, mlen):
+    """find_matches' (bytes, ops): the blocks and n_valid read once, delta
+    and mlen written once; ~12 operations a position to hash and key it,
+    log2 N to group it, 2 a byte compared (each candidate's length + 1)."""
+    import torch
+
+    B, N = dt.shape
+    cands = int(torch.count_nonzero(delta))
+    return (nbytes(dt, nvt, delta, mlen),
+            B * N * (12 + (N - 1).bit_length()) + 2 * (int(mlen.long().sum()) + cands))
+
+
+def fm_shape(B: int, N: int, C: int) -> dict:
+    """csrc/find_matches.cu's launch at B blocks of N bytes, C candidates,
+    on this card (nlzm_fm_shape): threads a CTA, dynamic shared bytes,
+    registers a thread (cudaFuncGetAttributes), resident CTAs an SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the waves of B
+    CTAs."""
+    import ctypes
+
+    import torch
+
+    from nlzm_tpu_torch import _build
+
+    out = (ctypes.c_int * 5)()
+    st = _build.entry("find_matches", "nlzm_fm_shape", 1, 3)(
+        ctypes.addressof(out), B, N, C, torch.cuda.current_device(), None)
+    if st:
+        raise RuntimeError(f"nlzm_fm_shape: CUDA error {st}")
+    threads, smem, regs, ctas, sms = out
+    return dict(threads=threads, smem_bytes=smem, registers=regs, ctas_per_sm=ctas,
+                waves=-(-B // (ctas * sms)) if ctas else None)
+
+
+def fm_timing(dt, nvt, reach: int, C: int) -> dict:
+    """find_matches on these blocks: CUDA-event mean (ms), the kernel's
+    device time (device_ms, kernel_device_ms), ns a position, its bound
+    (fm_work) and the launch shape (fm_shape)."""
+    from nlzm_tpu_torch.ops import encode_ops as eo
+
+    call = lambda: eo.find_matches(dt, nvt, reach, C)
+    b_ms, b_by = bound(*fm_work(dt, nvt, *call()))  # also the warm-up
+    ms = timed_mean(call, KERNEL_REPS)
+    B, N = dt.shape
+    return dict(blocks=B, N=N, C=C, reach=reach, ms=ms,
+                device_ms=kernel_device_ms(call, "find_matches"),
+                ns_per_position=ms * 1e6 / max(B * N, 1), bound_ms=b_ms, bound_by=b_by,
+                **fm_shape(B, N, C))
+
+
+def fm_inputs(corpus: bytes, device, seed: int = 7):
+    """(label, (data, n_valid, reach, C) on `device`) of every shape the
+    kernel is held and timed at: the v1 encodes' 1024 x 8192 (reach 8191;
+    one and three candidates), one 2 MiB file bucket (256 x 8192), the
+    global path's 8 x 131072 (three candidates), every
+    fuzz_matches(seed, card=True) pattern, runs_short at six candidates
+    (the kernel's path for C > 4), and one block of 700 bytes."""
+    import torch
+
+    from nlzm_tpu_torch.ops import encode_ops as eo
+
+    def blocks(data, N):
+        arr, nv = eo._blocks_arrays(data, N)
+        return torch.as_tensor(arr, device=device), torch.as_tensor(nv, device=device)
+
+    v1 = V1_ENC["block_size"]
+    reach = (1 << V1_ENC_HIST_BITS) - 1
+    dt, nvt = blocks(corpus[:V1_ENC_BYTES], v1)
+    for C in (1, 3):
+        yield f"v1_1024x{v1}_c{C}", (dt, nvt, reach, C)
+    bt, bnv = dt[: STREAM_BUCKET // v1], nvt[: STREAM_BUCKET // v1]
+    for C in (1, 3):
+        yield f"bucket_256x{v1}_c{C}", (bt, bnv, reach, C)
+    del dt, nvt, bt, bnv
+    big = BIG_COVER["block_size"]
+    yield f"big_8x{big}_c3", (*blocks(corpus[: BIG_COVER["bytes"]], big), big - 1, 3)
+    for pat, (d, nv, r, C) in fuzz_matches(seed, card=True).items():
+        yield pat, (torch.as_tensor(d, device=device), torch.as_tensor(nv, device=device), r, C)
+        if pat == "runs_short":
+            yield f"{pat}_c6", (torch.as_tensor(d, device=device),
+                                torch.as_tensor(nv, device=device), r, 6)
+    one = blocks(corpus[:700], 700)  # the smallest launch: one block of 700 bytes
+    yield "one_1x700", (*one, 699, 3)
+
+
+def check_fm(tally: Tally, corpus: bytes, device) -> dict:
+    """Phase kernels_fm: find_matches against its plain version, exact,
+    untimed in the tally, at every fm_inputs shape; each timed
+    (fm_timing), and the wide encodes' 245 x 32768 (one and three
+    candidates, held in kernels_enc) timed beside them. Returns the
+    phase's fields."""
+    import torch
+
+    from nlzm_tpu_torch.ops import encode_ops as eo
+
+    timing = {}
+    arr, nv = eo._blocks_arrays(corpus[:SHIP_BYTES], ENC_GREEDY["block_size"])
+    wt, wnvt = torch.as_tensor(arr, device=device), torch.as_tensor(nv, device=device)
+    for C in (1, 3):
+        timing[f"wide_245x32768_c{C}"] = fm_timing(wt, wnvt, (1 << ENC_HIST_BITS) - 1, C)
+    del wt, wnvt
+    for label, (dt, nvt, reach, C) in fm_inputs(corpus, device):
+        tally.hold("find_matches", lambda: eo.find_matches(dt, nvt, reach, C),
+                   lambda: eo.find_matches_ref(dt, nvt, reach, C), timed=False)
+        timing[label] = fm_timing(dt, nvt, reach, C)
+    return {"fm_timing": timing}
 
 
 def check_rans(tally: Tally, device) -> dict:
@@ -3375,6 +3782,12 @@ def main() -> int:
           "timing": f"CUDA events, mean of {KERNEL_REPS} back-to-back calls; ns a step of the "
                     f"longest chain (the most spans a block / 4); registers, CTAs an SM and "
                     f"waves from the CUDA runtime", "card": card})
+    t0 = time.perf_counter()
+    fm = check_fm(tally, corpus, "cuda")
+    emit({"phase": "kernels_fm", "ok": True, **fm, "seconds": time.perf_counter() - t0,
+          "timing": f"CUDA events, mean of {KERNEL_REPS} back-to-back calls; device_ms from "
+                    f"torch.profiler; registers, CTAs an SM and waves from the CUDA runtime",
+          "card": card})
     plane_launches, plane_shape = check_plane_decode(tally, wide_c, "cuda")
     emit({"phase": "kernels_plane_decode", "ok": True, **plane_shape,
           "kernels": tally.summary(("plane_decode",)), "launches": plane_launches,

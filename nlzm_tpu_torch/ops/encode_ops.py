@@ -46,6 +46,7 @@ from .cdf_ops import (
 MAX_MLEN = 264  # reference MATCH_MAX (NLZM.cpp:737)
 _WORDS = MAX_MLEN // 4
 _SMEM_MAX_N = 32768  # csrc kernels keep a block's keys / steps in shared memory up to here
+_FM_MAX_N = 131072  # csrc/find_matches.cu keeps a block's bytes in shared memory up to here
 
 
 def _i32(name, *tensors):
@@ -81,7 +82,8 @@ def _extend_matches_ref(wordp, cand, ok, n_valid, pos, N: int):
         torch.where((mism & 0xFFFF) != 0, 1, torch.where((mism & 0xFFFFFF) != 0, 2, 3)),
     )
     mlen = (full * 4 + torch.where(mism == 0, 0, tz)).clamp(max=MAX_MLEN)
-    limit = (n_valid.long()[:, None] - pos).clamp(min=0)
+    # n_valid - pos in int32, wrapping as JAX's subtraction does
+    limit = ((n_valid.long()[:, None] - pos + (1 << 31)) % (1 << 32) - (1 << 31)).clamp(min=0)
     return torch.minimum(mlen, limit)
 
 
@@ -121,8 +123,9 @@ def find_matches(data, n_valid, reach: int, num_cands: int = 1):
     16-bit hash ((word * HASH4_MULT) mod 2^32) >> 16 of the little-endian
     word at p (zeros past N), dropped when p - q > reach. Its length is the
     count of equal leading bytes at p and q, capped at MAX_MLEN and at
-    n_valid - p. Returns (delta, mlen) int32 [B, N, C] (0 = none),
-    [B, N] when num_cands == 1.
+    max(n_valid - p, 0) (int32, wrapping). Returns (delta, mlen) int32
+    [B, N, C] (0 = none), [B, N] when num_cands == 1. On the card N is at
+    most 131072, the format's block cap.
     """
     if data.device.type == "cpu":
         return find_matches_ref(data, n_valid, reach, num_cands)
@@ -130,19 +133,21 @@ def find_matches(data, n_valid, reach: int, num_cands: int = 1):
     B, N = data.shape
     if data.dtype != torch.uint8 or n_valid.shape != (B,) or num_cands < 1:
         raise ValueError("find_matches: data [B, N] uint8, n_valid [B] int32, num_cands >= 1")
+    if N > _FM_MAX_N:
+        raise ValueError(f"find_matches: blocks of {N} bytes; the kernel takes at most {_FM_MAX_N}")
     _i32("find_matches", n_valid)
     C = num_cands
-    M = _next_pow2(N)
     shape = (B, N) if C == 1 else (B, N, C)
     delta = torch.empty(shape, dtype=torch.int32, device=data.device)
     mlen = torch.empty(shape, dtype=torch.int32, device=data.device)
-    keys = None
+    pos = None  # positions by low hash byte, then prev by position: u32 [B, 2, N]
     if N > _SMEM_MAX_N:
-        keys = torch.empty(B, M, dtype=torch.int64, device=data.device)
+        pos = torch.empty(B, 2, N, dtype=torch.int32, device=data.device)
     fn = _build.entry("find_matches", "nlzm_find_matches", 5, 5)
+    # every reach at or past N - 1 keeps every candidate; below 1 none
     _build.launch(fn, [data.data_ptr(), n_valid.data_ptr(), delta.data_ptr(), mlen.data_ptr(),
-                       None if keys is None else keys.data_ptr()],
-                  [B, N, M, int(reach), C], data.device)
+                       None if pos is None else pos.data_ptr()],
+                  [B, N, _next_pow2(N), min(max(int(reach), 0), N), C], data.device)
     find_matches.launches += 1
     return delta, mlen
 
