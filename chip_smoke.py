@@ -16,12 +16,14 @@ card and fails (nonzero exit, no result line) on anything wrong:
    wide-path kernel against its plain PyTorch version on the same device
    tensors at these main-path shapes (exact: the codec is integer and
    lossless), lz_expand also at round hints 0 and 1; times both with
-   CUDA events;
+   CUDA events (plane_scan through the main path's entry, which takes the
+   container's u16 priors unchecked);
 4. e2e_ship: decode_container(device="cuda") must return the input
    (CRC-verified) with every kernel of the path launched; decode MB/s;
 5. e2e_frontier: the same at 128 KiB blocks, 128 KiB dictionary, depth
-   cap 12, on 4 MB; then lz_expand at round hints 0 and 1 against its
-   plain version on these buckets;
+   cap 12, on 4 MB; then plane_scan (untimed in the tally, timed apart:
+   ps_timing) and lz_expand at round hints 0 and 1 against their plain
+   versions on these buckets;
 6. corrupt: a flipped stream byte must raise IntegrityError, and a valid
    decode right after must still succeed;
 7. kernels_v1: the bench's v1 config (8 MB, 32 KiB blocks, optimal
@@ -115,7 +117,17 @@ card and fails (nonzero exit, no result line) on anything wrong:
     reaches 1 to past N, N from 700 to 131072, one to four candidates;
     runs_short also at six) and 1 x 700, each timed beside the wide
     encodes' 245 x 32768 (fm_timing: ms, device ms, ns a position,
-    registers, CTAs an SM, waves);
+    registers, CTAs an SM, waves); then phase kernels_scan: plane_scan
+    (csrc/plane_scan.cu) against its plain version, exact, on the two
+    quantile buckets of one 2 MiB file bucket (32 x 32 KiB each) and every
+    fuzz_scan pattern (n_sym at 0, 1, L - 1, L, steps * L and past it,
+    below 0 and 2^31 - 1, empty planes, zero seeds, priors none, 0, 65535
+    and random u16, windows too narrow for a chunk's renorms, rows not 16
+    bytes wide, B = 1, steps 2 to 40), each timed beside the shipping
+    buckets (held in 3) and the frontier ones (held in 5) (ps_timing: ms,
+    device ms, ns a step, the checked wrapper's ms, registers, CTAs an SM,
+    waves), the four wide decode kernels' device ms a launch on the
+    shipping buckets and that file bucket's, and the phase's seconds;
 20. e2e_enc_v1_opt: encode_container(parser="optimal", engine="device")
     of the 8 MiB at 8 KiB blocks, checked as 17; MB/s, the ratio and 17's
     greedy ratio;
@@ -268,6 +280,17 @@ MAX_MATCH = 264  # a match's longest length (encode_ops.MAX_MLEN)
 # spec of tests/test_wide.py and a 2-read one, read 1 keyed by row0 * 8 + y
 SYNTH_PLANES = {"four_row": ("dst", 8, 1, (16,), (4,)), "two_read": ("dst", 24, 2, (8, 16), (4, 32))}
 SYNTH_BLOCKS = 245
+# csrc/plane_scan.cu's scheme (scan_model): slot order (lanes, alphabet,
+# wire plane), its ring of window rows (slots; a chunk's row copied up to
+# PS_MAX_CLEN lanes' worth of pairs), the 8-bit register counts of tok
+# and len
+PS_SLOTS = ((64, 4, 0), (32, 8, 2), (32, 64, 4), (64, 256, 1), (16, 256, 3))
+PS_RING = 4
+PS_MAX_CLEN = 8  # format/wide.py CHUNK_STEPS
+PS_WIRE_LANES = (64, 64, 32, 16, 32)  # tok, lit, len, lex, dst
+PS_WIRE_ALPH = (4, 256, 8, 256, 64)
+PS_WH_SHIP = (72, 352, 64, 48, 88)  # window ints a chunk, the shipping bucket 0
+PS_CDF = 1 << 14  # the wide profile's CDF scale
 
 
 def build_corpus(n: int) -> bytes:
@@ -1771,6 +1794,256 @@ def fm_model(data, n_valid, reach: int, C: int):
     return (D[..., 0], L[..., 0]) if C == 1 else (D, L)
 
 
+def fuzz_scan(seed: int, names=None) -> dict:
+    """Inputs of plane_scan_fused drawn from a seed, for the worst cases of
+    csrc/plane_scan.cu: (seeds [B, 208] uint32, wins (five int32 [NC, B,
+    WH_p], wire order), n_syms [B, 5] int32, steps, priors (five int32
+    [alph], wire order) or None) a pattern. Random u32 seeds and u16
+    windows; at B = 4, steps 40 and the shipping bucket's window widths
+    (72, 352, 64, 48, 88) unless named otherwise:
+    - "random": n_sym random in 0..steps * L_p; "b1": the same at B = 1;
+    - "edges_low", "edges_high": n_sym 0, 1, L - 1, L and steps * L, steps
+      * L + 5, -3, 2^31 - 1 in every plane, one value a block;
+    - "one_empty": block b's wire plane b empty, the others full (steps *
+      L); "dst_empty": B = 1, dst empty, the others full;
+    - "seeds_zero": every seed 0, planes full (every lane renormalises at
+      once);
+    - "priors_random", "priors_zero", "priors_max": random u16 priors, all
+      0 (lit's 255 fences in its first 256 CDF values), all 65535;
+    - "narrow": windows (8, 16, 8, 8, 8), planes full: pairs past every
+      plane's window, dst's into the zero padding (JAX's index); "narrow_odd":
+      (5, 13, 7, 3, 9), random priors: rows copied 4 bytes at a time;
+    - "wide": B = 2, windows 8 L_p (the ring's whole slot), planes full;
+    - "steps2" (B = 1, the smallest launch), "steps4", "steps8", "steps16"
+      (B = 2): the warmup chunks alone, planes full, random priors.
+    names: the patterns to return (default all)."""
+    import numpy as np
+
+    from nlzm_tpu_torch.format.wide import chunk_schedule
+
+    rng = np.random.default_rng(seed)
+    Ls = np.asarray(PS_WIRE_LANES, np.int64)
+
+    def make(B=4, steps=40, WH=PS_WH_SHIP, nsym="random", priors=None, seeds="random"):
+        NC = len(chunk_schedule(steps))
+        sd = (np.zeros((B, 208), np.uint32) if seeds == "zero"
+              else rng.integers(0, 1 << 32, (B, 208), dtype=np.uint64).astype(np.uint32))
+        wins = tuple(rng.integers(0, 1 << 16, (NC, B, w)).astype(np.int32) for w in WH)
+        if isinstance(nsym, str):
+            full = np.broadcast_to(steps * Ls, (B, 5))
+            ns = full if nsym == "full" else rng.integers(0, full + 1)
+        else:
+            ns = nsym
+        pri = None
+        if priors == "random":
+            pri = tuple(rng.integers(0, 1 << 16, a).astype(np.int32) for a in PS_WIRE_ALPH)
+        elif priors is not None:
+            pri = tuple(np.full(a, priors, np.int32) for a in PS_WIRE_ALPH)
+        return sd, wins, np.ascontiguousarray(ns, np.int32), steps, pri
+
+    def edges(values):
+        return np.stack([[v(int(L)) for L in Ls] for v in values])
+
+    def one_empty():
+        ns = np.broadcast_to(40 * Ls, (4, 5)).copy()
+        ns[np.arange(4), np.arange(4)] = 0
+        return ns
+
+    dst_empty = np.append(40 * Ls[:4], 0)[None]
+    pats = {
+        "random": lambda: make(),
+        "b1": lambda: make(B=1),
+        "edges_low": lambda: make(nsym=edges((lambda L: 0, lambda L: 1, lambda L: L - 1,
+                                               lambda L: L))),
+        "edges_high": lambda: make(nsym=edges((lambda L: 40 * L, lambda L: 40 * L + 5,
+                                                lambda L: -3, lambda L: (1 << 31) - 1))),
+        "one_empty": lambda: make(nsym=one_empty()),
+        "dst_empty": lambda: make(B=1, nsym=dst_empty),
+        "seeds_zero": lambda: make(nsym="full", seeds="zero"),
+        "priors_random": lambda: make(priors="random"),
+        "priors_zero": lambda: make(priors=0),
+        "priors_max": lambda: make(priors=0xFFFF),
+        "narrow": lambda: make(WH=(8, 16, 8, 8, 8), nsym="full"),
+        "narrow_odd": lambda: make(WH=(5, 13, 7, 3, 9), nsym="full", priors="random"),
+        "wide": lambda: make(B=2, WH=tuple(PS_MAX_CLEN * int(L) for L in Ls), nsym="full"),
+        **{f"steps{n}": (lambda n=n: make(B=1 if n == 2 else 2, steps=n, nsym="full",
+                                           priors="random"))
+           for n in (2, 4, 8, 16)},
+    }
+    return {k: pats[k]() for k in (names or pats)}
+
+
+def ps_quot(n, d):
+    """csrc/plane_scan.cu's quot: floor(n / d) for 0 <= n < 2^31 and d >= 1,
+    as the multiply-high of n by floor((2^32 - 1) / d) and one correction
+    (uint64 arrays)."""
+    import numpy as np
+
+    n, d = np.asarray(n, np.uint64), np.asarray(d, np.uint64)
+    q = (n * (np.uint64(0xFFFFFFFF) // d)) >> np.uint64(32)
+    return q + (n - q * d >= d)
+
+
+def ps_fences(car, A: int):
+    """The kernel's rebuild: fences [B, A + 1] (int64) from carries [B, A]:
+    freq = 1 + ps_quot(carry * (2^14 - A), tot + 1), fences the exclusive
+    sums with the last pinned at 2^14."""
+    import numpy as np
+
+    B = car.shape[0]
+    fr = 1 + ps_quot(car * (PS_CDF - A), car.sum(1, keepdims=True) + 1).astype(np.int64)
+    fen = np.zeros((B, A + 1), np.int64)
+    fen[:, 1:A] = np.cumsum(fr, 1)[:, :-1]
+    fen[:, A] = PS_CDF
+    return fen
+
+
+def ps_bitmap(fen, A: int):
+    """The kernel's search table (count, bits) [B, 512]: bit v & 31 of word
+    v >> 5 set for each fence 1..A-1 at value v, count the fences before the
+    word (an exclusive sum of the words' popcounts)."""
+    import numpy as np
+
+    B = fen.shape[0]
+    bits = np.zeros((B, PS_CDF // 32), np.uint64)
+    v = fen[:, 1:A]
+    np.bitwise_or.at(bits, (np.repeat(np.arange(B), A - 1), (v >> 5).reshape(-1)),
+                     (np.uint64(1) << (v & 31).astype(np.uint64)).reshape(-1))
+    pop = ps_popc(bits)
+    return np.cumsum(pop, 1) - pop, bits
+
+
+def ps_popc(v):
+    """Set bits of each value of a uint64 array below 2^32 (int64)."""
+    import numpy as np
+
+    return np.unpackbits(np.asarray(v, "<u8")[..., None].view(np.uint8), axis=-1).sum(
+        -1, dtype=np.int64)
+
+
+def scan_model(seeds, wins, n_syms, steps: int, priors=None, stats=None):
+    """A numpy model of csrc/plane_scan.cu's scheme, five int32 [B, steps *
+    L_p] (wire order) as plane_scan_fused. Each plane apart (PS_SLOTS),
+    each block to its own live steps ceil(n_sym / L) (0..steps), zeros past
+    them. Lane 2t + j of a 64-lane plane is thread t's j-th, and its renorm
+    rank the popc of the plane's ballots below it. A renorm pair at index h
+    of the chunk is the ring's (the row's first min(WH_p, PS_MAX_CLEN L_p)
+    ints) or else JAX's (the chunk's rows concatenated in wire order,
+    zero-padded to a multiple of 64, h clamped). tok and len: fences in
+    every lane, counts in 8-bit fields of a thread summed in 16-bit halves
+    every PS_MAX_CLEN steps; dst, lit and lex: the fence bitmap (ps_bitmap),
+    a symbol the count before f's word plus the word's bits up to f, counts
+    one at a time. Tables rebuilt (ps_fences) only while a block's steps
+    remain. stats, a dict, gets per wire plane its live steps a block
+    ("live"), pairs read from the ring ("ring") and at JAX's index
+    ("jax_index"; "padding": of those, in the zero padding), and searches
+    whose word held more than one fence ("dense")."""
+    import numpy as np
+
+    from nlzm_tpu_torch.format.wide import chunk_schedule
+
+    seeds = np.asarray(seeds).view(np.uint32).astype(np.uint64)
+    n_syms = np.asarray(n_syms, np.int64)
+    B = seeds.shape[0]
+    NC = len(chunk_schedule(steps))
+    WHs = [int(w.shape[2]) for w in wins]
+    base = np.cumsum([0] + WHs)[:5]
+    cat = np.concatenate([np.asarray(w, np.int64) for w in wins]
+                         + [np.zeros((NC, B, -sum(WHs) % 64), np.int64)], axis=2)
+    WHc = cat.shape[2]
+    M32 = np.uint64(0xFFFFFFFF)
+    bi = np.arange(B)[:, None]
+    outs = [None] * 5
+    lane0 = 0
+    for L, A, p in PS_SLOTS:
+        LPT = 2 if L == 64 else 1
+        nthr = L // LPT
+        n = n_syms[:, p]
+        live = np.where(n <= 0, 0, np.minimum(steps, (np.maximum(n, 1) - 1) // L + 1))
+        last_n = np.minimum(L, n - (np.maximum(live, 1) - 1) * L)
+        x = seeds[:, lane0 : lane0 + L].copy()
+        lane0 += L
+        car = (np.zeros((B, A), np.int64) if priors is None
+               else np.broadcast_to(np.asarray(priors[p], np.int64), (B, A)).copy())
+        if priors is None:
+            fen = np.broadcast_to(np.append(np.arange(A) * (PS_CDF // A), PS_CDF),
+                                  (B, A + 1)).copy()
+        else:
+            fen = ps_fences(car, A)
+        cnt_t, bits_t = ps_bitmap(fen, A)
+        out = np.zeros((B, steps, L), np.int32)
+        ncopy = min(WHs[p], PS_MAX_CLEN * L)
+        st_p = dict(live=live.tolist(), ring=0, jax_index=0, padding=0, dense=0)
+        lanes = np.arange(L)
+        s = 0
+        for c, clen in enumerate(chunk_schedule(steps)):
+            if s >= live.max(initial=0):
+                break
+            cnt = np.zeros((B, A), np.int64)
+            rel = np.zeros((B, 1), np.int64)
+            pk = np.zeros((B, nthr), np.uint64)  # tok, len: 8-bit fields a thread
+            for i in range(clen):
+                f = (x & np.uint64(0x3FFF)).astype(np.int64)
+                if A <= 8:
+                    y = (f[:, :, None] >= fen[:, None, 1:A]).sum(2)
+                else:
+                    w = f >> 5
+                    word = bits_t[bi, w]
+                    y = cnt_t[bi, w] + ps_popc(word & ((np.uint64(2) << (f & 31).astype(np.uint64))
+                                                       - np.uint64(1)))
+                    st_p["dense"] += int(((ps_popc(word) > 1) & (s < live[:, None])).sum())
+                st = fen[bi, y]
+                fr = fen[bi, y + 1] - st
+                x2 = (fr.astype(np.uint64) * (x >> np.uint64(14))
+                      + (f - st).astype(np.uint64)) & M32
+                act = (s < live[:, None] - 1) | ((s == live[:, None] - 1)
+                                                   & (lanes < last_n[:, None]))
+                ren = act & (x2 < np.uint64(1 << 16))
+                R = ren.reshape(B, nthr, LPT).astype(np.int64)
+                below = np.cumsum(R.sum(2), 1) - R.sum(2)  # popc of the ballots below
+                rank = (below[:, :, None] + np.cumsum(R, 2) - R).reshape(B, L)
+                h = rel + rank
+                ring = (np.asarray(wins[p][c], np.int64)[bi, np.minimum(h, ncopy - 1)] if ncopy
+                        else np.zeros_like(h))
+                jax_h = np.minimum(base[p] + h, WHc - 1)
+                far = cat[c][bi, np.maximum(jax_h, 0)] if WHc else np.zeros_like(h)
+                pair = np.where(h < ncopy, ring, far).astype(np.uint64)
+                st_p["ring"] += int((ren & (h < ncopy)).sum())
+                st_p["jax_index"] += int((ren & (h >= ncopy)).sum())
+                st_p["padding"] += int((ren & (h >= ncopy) & (jax_h >= sum(WHs))).sum())
+                x = np.where(ren, ((x2 << np.uint64(16)) | pair) & M32, np.where(act, x2, x))
+                rel = rel + ren.sum(1, keepdims=True)
+                y = np.where(act, y, 0)
+                if A <= 8:
+                    one = np.where(act, np.uint64(1) << (np.uint64(8) * y.astype(np.uint64)),
+                                   np.uint64(0))
+                    pk += one.reshape(B, nthr, LPT).sum(2, dtype=np.uint64)
+                    if (i + 1) % PS_MAX_CLEN == 0 or i + 1 == clen:
+                        for w in range(A // 4):
+                            v = (pk >> np.uint64(32 * w)) & M32
+                            ev = (v & np.uint64(0x00FF00FF)).sum(1)
+                            od = ((v >> np.uint64(8)) & np.uint64(0x00FF00FF)).sum(1)
+                            lo16, hi16 = np.uint64(0xFFFF), np.uint64(16)
+                            for k, part in ((0, ev & lo16), (1, od & lo16), (2, ev >> hi16),
+                                            (3, od >> hi16)):
+                                cnt[:, 4 * w + k] += part.astype(np.int64)
+                        pk[:] = 0
+                else:
+                    np.add.at(cnt, (np.broadcast_to(bi, y.shape)[act], y[act]), 1)
+                out[:, s] = np.where(s < live[:, None], y, 0)
+                s += 1
+                if s >= live.max(initial=0):
+                    break
+            more = s < live  # blocks whose tables are rebuilt for the next chunk
+            car = np.where(more[:, None], (car >> 1) + cnt, car)
+            fen = np.where(more[:, None], ps_fences(car, A), fen)
+            cnt_t, bits_t = ps_bitmap(fen, A)
+        outs[p] = out.reshape(B, steps * L)
+        if stats is not None:
+            stats[p] = st_p
+    return tuple(outs)
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -1828,21 +2101,37 @@ class Tally:
     def hold(self, name, kernel, plain, reps=KERNEL_REPS, reps_plain=KERNEL_REPS,
              work=(0, 0), timed=True):
         """Compare kernel() with plain() exactly; then time both (the
-        comparison call is their warm-up). work = (bytes, ops)."""
-        got, want = kernel(), plain()
+        comparison call is their warm-up). reps_plain=0 times the plain
+        version on its comparison call, cold, and calls it no more: for
+        the step loops of a second or more a call. work = (bytes, ops)."""
+        got = kernel()
+        plain_ms, want = timed_call(plain)
         err = max_abs_err(got, want)
         if err != 0:
             raise AssertionError(f"{name}: kernel differs from its plain version (max |err| {err})")
         r = self.k.setdefault(name, dict(max_abs_err=0, ms=0.0, plain_ms=0.0, bytes=0, ops=0))
         if timed:
             r["ms"] += timed_mean(kernel, reps)
-            r["plain_ms"] += timed_mean(plain, reps_plain)
+            r["plain_ms"] += timed_mean(plain, reps_plain) if reps_plain else plain_ms
             r["bytes"] += work[0]
             r["ops"] += work[1]
         return want
 
     def summary(self, names):
         return {n: self.k[n] for n in names}
+
+
+def timed_call(fn):
+    """(CUDA-event ms, result) of one call of fn()."""
+    import torch
+
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1), out
 
 
 def timed_mean(fn, reps: int) -> float:
@@ -1893,7 +2182,6 @@ def expand_work(op_len, block_size, rounds_hint, dict_arr):
 def check_kernels(tally: Tally, buckets, block_size: int):
     """Each wide-path kernel against its plain version on the same device
     tensors, bucket by bucket (times summed over buckets)."""
-    from nlzm_tpu_torch.format.wide import PLANES
     from nlzm_tpu_torch.ops import expand_ops as xo
     from nlzm_tpu_torch.ops import wide_decode as wd
 
@@ -1906,17 +2194,10 @@ def check_kernels(tally: Tally, buckets, block_size: int):
                           lambda: wd.stage_windows_fused_ref(*sw),
                           work=(nbytes(*sw[:3]) + 4 * win_elems, 2 * win_elems))
         ps = (staged["seeds_cat"], wins, staged["n_sym"], staged["steps"], staged["priors"])
-        # per live symbol: one compare per fence and ~10 state ops; per
-        # chunk, plane and block: ~4 ops per alphabet entry to rebuild
-        alph = [p.alphabets[0] for p in PLANES]
-        n_sym = staged["n_sym"].long().sum(0).tolist()
-        steps = staged["steps"]
-        out_elems = sum(B * steps * p.lanes for p in PLANES)
-        ps_ops = sum(n * (a + 10) for n, a in zip(n_sym, alph)) + NC * B * sum(alph) * 4
-        ys = tally.hold("plane_scan", lambda: wd.plane_scan_fused(*ps),
-                        lambda: wd.plane_scan_fused_ref(*ps), reps_plain=2,
-                        work=(nbytes(staged["seeds_cat"], staged["n_sym"], *wins)
-                              + 4 * out_elems, ps_ops))
+        # the main path's entry: the container's u16 priors are not checked,
+        # and come staged in slot order
+        ys = tally.hold("plane_scan", lambda: wd._plane_scan_fused(*ps, staged["slot_priors"]),
+                        lambda: wd.plane_scan_fused_ref(*ps), reps_plain=2, work=ps_work(ps))
         if block_size <= wd.CAP15:
             ys = tuple(a[:, : min(a.shape[1], wd.CAP15)] for a in ys)
         tok_y, lit_y, len_y, lex_y, slot_y = ys
@@ -1945,19 +2226,25 @@ def hold_low_hints(tally: Tally, op_len, op_val, block_size: int, dict_arr):
                    lambda: xo.lz_expand_parallel_ref(*lo), timed=False)
 
 
-def check_frontier_hints(tally: Tally, container: bytes, device):
+def check_frontier_hints(tally: Tally, container: bytes, device) -> dict:
     """hold_low_hints on the frontier buckets (128 KiB blocks with a
-    dictionary: the JAX 2-operand path), commands from the kernels."""
+    dictionary: the JAX 2-operand path), commands from the kernels; there
+    plane_scan held against its plain version, untimed in the tally, and
+    timed apart. Returns {label: ps_timing}."""
     from nlzm_tpu_torch.ops import wide_decode as wd
 
     info, buckets = stage(container, device)
-    for staged, _ in buckets:
-        tok_y, lit_y, len_y, lex_y, slot_y = wd.plane_scan_fused(
-            staged["seeds_cat"], wd.stage_windows_of(staged), staged["n_sym"],
-            staged["steps"], staged["priors"])
+    timing = {}
+    for i, (staged, _) in enumerate(buckets):
+        ps = ps_args(staged)
+        tok_y, lit_y, len_y, lex_y, slot_y = tally.hold(
+            "plane_scan", lambda: wd.plane_scan_fused(*ps), lambda: wd.plane_scan_fused_ref(*ps),
+            timed=False)
+        timing[f"frontier_b{i}"] = ps_timing(ps)
         op_len, op_val = wd.assemble_ops(tok_y, len_y, lex_y, lit_y, slot_y, staged["bit_half"],
                                          staged["n_sym"][:, 0].contiguous())
         hold_low_hints(tally, op_len, op_val, info.block_size, staged["dict_arr"])
+    return timing
 
 
 def fsm_work(streams, op_len, op_val, reads: int):
@@ -1986,7 +2273,8 @@ def fsm_work(streams, op_len, op_val, reads: int):
 
 def check_kernels_v1(tally: Tally, buckets, info):
     """fsm_decode and lz_expand against their plain versions on the v1
-    buckets (the plain fsm timed once, its comparison call the warm-up);
+    buckets (the plain fsm, a step loop of minutes, timed on its comparison
+    call);
     then fsm_decode on hostile streams made from the first bucket
     (untimed)."""
     import torch
@@ -2000,7 +2288,7 @@ def check_kernels_v1(tally: Tally, buckets, info):
         work = fsm_work(streams, op_len, op_val, sum(info.total_reads[b] for b in idx))
         op_len, op_val = tally.hold(
             "fsm_decode", lambda: dv.fsm_decode_v2(streams, num_steps),
-            lambda: dv.fsm_decode_v2_ref(streams, num_steps), reps=FSM_REPS, reps_plain=1,
+            lambda: dv.fsm_decode_v2_ref(streams, num_steps), reps=FSM_REPS, reps_plain=0,
             work=work)
         ex = (op_len, op_val, block_size)
         tally.hold("lz_expand_v1", lambda: xo.lz_expand_parallel(*ex),
@@ -2132,7 +2420,8 @@ def expect_integrity_error(label, bad: bytes, good: bytes, data: bytes, device):
 
 
 def run_wide(tally: Tally, data: bytes, device, card: str):
-    """Phases 3-6; returns (the shipping container, main-path launches)."""
+    """Phases 3-6; returns (the shipping container, main-path launches,
+    plane_scan's timings on the frontier buckets)."""
     from nlzm_tpu_torch.ops import wide_decode as wd
     from nlzm_tpu_torch.parallel.blocks import encode_container
 
@@ -2156,10 +2445,10 @@ def run_wide(tally: Tally, data: bytes, device, card: str):
     fdata = data[:FRONTIER_BYTES]
     fcont = encode_container(fdata, parser="optimal", profile="wide", **FRONTIER)
     decode_path("e2e_frontier", fdata, fcont, card, device, WIDE_KERNELS)
-    check_frontier_hints(tally, fcont, device)
+    frontier_ps = check_frontier_hints(tally, fcont, device)
 
     expect_integrity_error("corrupt", corrupt_copy(container), container, data, device)
-    return container, launches
+    return container, launches, frontier_ps
 
 
 def run_v1(tally: Tally, data: bytes, device, card: str):
@@ -2192,8 +2481,8 @@ def run_v1(tally: Tally, data: bytes, device, card: str):
           "num_steps": [s for _, s, _ in buckets], "max_cmds": max(info.num_cmds),
           "kernels": tally.summary(("fsm_decode", "lz_expand_v1")), "hostile": hostile,
           "fsm_decode_shapes": shapes,
-          "timing": f"CUDA events; fsm_decode: mean of {FSM_REPS} calls, plain once after "
-                    f"its comparison call; lz_expand: mean of {KERNEL_REPS}, plain of 3",
+          "timing": f"CUDA events; fsm_decode: mean of {FSM_REPS} calls, plain once (its "
+                    f"comparison call past 1 s); lz_expand: mean of {KERNEL_REPS}, plain of 3",
           "card": card})
 
     def staged_run():
@@ -2339,7 +2628,8 @@ def run_encode(tally: Tally, data: bytes, device, card: str, ratios: dict):
           "kernels": tally.summary(ENC_KERNELS + ("find_matches_c3",)),
           "timing": f"CUDA events, mean of {KERNEL_REPS} back-to-back calls (plane_encode: "
                     f"summed over the five planes); plain: 3 calls for find_matches, 1 for "
-                    f"greedy_cover and repify, {KERNEL_REPS} for plane_encode", "card": card})
+                    f"greedy_cover and repify (the comparison call past 1 s), {KERNEL_REPS} "
+                    f"for plane_encode", "card": card})
 
     by_path = {}
     enc = lambda: encode_container(data, device=device, engine="device", **ENC_GREEDY)
@@ -2415,10 +2705,10 @@ def check_kernels_v1enc(tally: Tally, data: bytes, device):
     # 4 a fence of each coded read (load, target, adapt, store)
     spans, fields, nops = tally.hold(
         "emit_model", lambda: eo.emit_model(*cmds), lambda: eo.emit_model_ref(*cmds),
-        reps_plain=1, work=(nbytes(*cmds, spans, *fields, nops), 64 * n_cmd + 68 * n_span))
+        reps_plain=0, work=(nbytes(*cmds, spans, *fields, nops), 64 * n_cmd + 68 * n_span))
     # rans_backward: rans_work; bits_forward: ~20 a step (masks, scan, two ORs)
     tally.hold("rans_backward", lambda: eo.rans_backward(spans, rans_cap),
-               lambda: eo.rans_backward_ref(spans, rans_cap), reps_plain=1,
+               lambda: eo.rans_backward_ref(spans, rans_cap), reps_plain=0,
                work=rans_work(spans, rans_cap))
     rans_v1 = rans_timing(spans, rans_cap)
     tally.hold("bits_forward", lambda: eo.bits_forward(fields, bits_cap),
@@ -2470,8 +2760,8 @@ def run_v1_encode(tally: Tally, data: bytes, device, card: str, ratios: dict):
     shape = check_kernels_v1enc(tally, data, device)
     emit({"phase": "kernels_v1enc", "ok": True, **shape,
           "kernels": tally.summary(V1ENC_KERNELS[3:]),
-          "timing": f"CUDA events, mean of {KERNEL_REPS} back-to-back calls; plain: 1 call "
-                    f"after its comparison call", "card": card})
+          "timing": f"CUDA events, mean of {KERNEL_REPS} back-to-back calls; plain: 1 "
+                    f"call (its comparison call past 1 s)", "card": card})
 
     N = V1_ENC["block_size"]
     by_path = {}
@@ -2594,7 +2884,7 @@ def check_kernels_opt(tally: Tally, data: bytes, device):
     delta, mlen = eo.find_matches(dt, nvt, (1 << V1_ENC_HIST_BITS) - 1, 3)
     defaults = eo.default_dp_costs(device).expand(B, 6).contiguous()
     choice = tally.hold("dp_parse", lambda: eo.dp_parse(delta, mlen, nvt),
-                        lambda: eo.dp_parse_ref(delta, mlen, nvt), reps_plain=1,
+                        lambda: eo.dp_parse_ref(delta, mlen, nvt), reps_plain=0,
                         work=dp_work(delta, mlen, nvt, defaults, N))
     dp_8k = dp_timing(delta, mlen, nvt)
     cov = (dt, delta, *choice, nvt, T)
@@ -2615,7 +2905,7 @@ def check_kernels_opt(tally: Tally, data: bytes, device):
                        work=(nbytes(*mc) + 4 * 6 * B,
                              8 * T * B + 4 * int(torch.count_nonzero(spans))))
     tally.hold("dp_parse", lambda: eo.dp_parse(delta, mlen, nvt, costs),
-               lambda: eo.dp_parse_ref(delta, mlen, nvt, costs), reps_plain=1,
+               lambda: eo.dp_parse_ref(delta, mlen, nvt, costs), reps_plain=0,
                work=dp_work(delta, mlen, nvt, costs, N))
     del delta, mlen, choice, cov
 
@@ -3057,6 +3347,176 @@ def fm_inputs(corpus: bytes, device, seed: int = 7):
     yield "one_1x700", (*one, 699, 3)
 
 
+def ps_args(staged):
+    """plane_scan_fused's arguments for a staged bucket, its windows from
+    stage_windows_fused."""
+    from nlzm_tpu_torch.ops import wide_decode as wd
+
+    return (staged["seeds_cat"], wd.stage_windows_of(staged), staged["n_sym"], staged["steps"],
+            staged["priors"])
+
+
+def ps_work(args):
+    """plane_scan's (bytes, ops) on one bucket: seeds, n_sym and the windows
+    read once, the five outputs written once; per live symbol a search of
+    log2(alphabet) compares (what a binary search needs; the kernel's
+    bitmap takes fewer) and ~10 state operations, per chunk, plane and
+    block ~4 a table entry to rebuild (symbols past steps * L_p not
+    counted)."""
+    import torch
+
+    seeds, wins, n_sym, steps, _ = args
+    B, NC = seeds.shape[0], wins[0].shape[0]
+    lanes = n_sym.new_tensor(PS_WIRE_LANES).long()
+    live = torch.minimum(n_sym.long().clamp(min=0), steps * lanes).sum(0).tolist()
+    out_elems = sum(B * steps * L for L in PS_WIRE_LANES)
+    ops = (sum(n * ((a - 1).bit_length() + 10) for n, a in zip(live, PS_WIRE_ALPH))
+           + NC * B * sum(PS_WIRE_ALPH) * 4)
+    return nbytes(seeds, n_sym, *wins) + 4 * out_elems, ops
+
+
+def ps_shape(B: int) -> dict:
+    """csrc/plane_scan.cu's launch at B blocks on this card (nlzm_ps_shape):
+    threads a CTA, shared bytes a CTA, registers a thread
+    (cudaFuncGetAttributes), resident CTAs an SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the waves of its B
+    x 5 CTAs (one warp a plane and block)."""
+    import ctypes
+
+    import torch
+
+    from nlzm_tpu_torch import _build
+
+    out = (ctypes.c_int * 5)()
+    st = _build.entry("plane_scan", "nlzm_ps_shape", 1, 0)(
+        ctypes.addressof(out), torch.cuda.current_device(), None)
+    if st:
+        raise RuntimeError(f"nlzm_ps_shape: CUDA error {st}")
+    threads, smem, regs, ctas, sms = out
+    return dict(threads=threads, smem_bytes=smem, registers=regs, ctas_per_sm=ctas,
+                waves=-(-5 * B // (ctas * sms)) if ctas else None)
+
+
+def ps_timing(args) -> dict:
+    """plane_scan on these arguments through the main path's entry (no prior
+    check, the priors staged in slot order once): CUDA-event mean (ms), the
+    kernel's device time (device_ms, kernel_device_ms), ns a step of the
+    bucket's steps from each, its bound (ps_work) and the launch shape
+    (ps_shape); host_ms, the host's time to issue a call of that entry
+    (the mean of KERNEL_REPS back-to-back calls, not waiting for the card);
+    unstaged_ms, the CUDA-event mean when the entry orders the priors
+    itself at each call; checked_ms, through plane_scan_fused, whose prior
+    check copies back and so waits for the kernel before it."""
+    import torch
+
+    from nlzm_tpu_torch.ops import wide_decode as wd
+
+    seeds, _, _, steps, priors = args
+    sp = wd.slot_priors(priors)
+    call = lambda: wd._plane_scan_fused(*args, sp)
+    call()  # the warm-up
+    ms = timed_mean(call, KERNEL_REPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(KERNEL_REPS):
+        call()
+    host_ms = (time.perf_counter() - t0) * 1e3 / KERNEL_REPS
+    torch.cuda.synchronize()
+    unstaged_ms = timed_mean(lambda: wd._plane_scan_fused(*args), KERNEL_REPS)
+    checked_ms = timed_mean(lambda: wd.plane_scan_fused(*args), KERNEL_REPS)
+    dev_ms = kernel_device_ms(call, "plane_scan")
+    b_ms, b_by = bound(*ps_work(args))
+    B = seeds.shape[0]
+    return dict(blocks=B, steps=steps, ms=ms, host_ms=host_ms, unstaged_ms=unstaged_ms,
+                checked_ms=checked_ms, device_ms=dev_ms,
+                ns_per_step=ms * 1e6 / max(steps, 1),
+                device_ns_per_step=None if dev_ms is None else dev_ms * 1e6 / max(steps, 1),
+                bound_ms=b_ms, bound_by=b_by, **ps_shape(B))
+
+
+def file_buckets(container: bytes, device):
+    """(block size, the two quantile buckets of the container's first 2 MiB
+    file bucket, staged as decode_container_stream stages them)."""
+    from nlzm_tpu_torch.ops import wide_decode as wd
+    from nlzm_tpu_torch.parallel.blocks import block_payloads, parse_container
+
+    info = parse_container(container)
+    nb = STREAM_BUCKET // info.block_size
+    return info.block_size, wd.stage_buckets(
+        block_payloads(container, info)[:nb], info.wide_priors, info.total_reads[:nb],
+        wd.dict_tensor(info.dictionary, device), device=device)
+
+
+def wide_device_ms(block_size: int, buckets, tag: str) -> dict:
+    """Each wide decode kernel's device ms a launch (kernel_device_ms) on
+    each staged bucket, as decode_wide_staged runs it: {tag_i: {kernel:
+    ms}}."""
+    from nlzm_tpu_torch.ops import expand_ops as xo
+    from nlzm_tpu_torch.ops import wide_decode as wd
+
+    out = {}
+    for i, (staged, _) in enumerate(buckets):
+        sw = (staged["hw_cat"], staged["offs"], staged["ends"], staged["WHs"])
+        ps = (staged["seeds_cat"], wd.stage_windows_fused(*sw), staged["n_sym"], staged["steps"],
+              staged["priors"])
+        ys = tuple(a[:, : min(a.shape[1], wd.CAP15)] for a in wd._plane_scan_fused(*ps))
+        tok_y, lit_y, len_y, lex_y, slot_y = ys
+        asm = (tok_y, len_y, lex_y, lit_y, slot_y, staged["bit_half"],
+               staged["n_sym"][:, 0].contiguous())
+        ex = (*wd.assemble_ops(*asm), block_size, staged["rounds_hint"], staged["dict_arr"])
+        calls = {"stage_windows": lambda: wd.stage_windows_fused(*sw),
+                 "plane_scan": lambda: wd._plane_scan_fused(*ps, staged["slot_priors"]),
+                 "assemble": lambda: wd.assemble_ops(*asm),
+                 "lz_expand": lambda: xo.lz_expand_parallel(*ex)}
+        out[f"{tag}_{i}"] = {"blocks": staged["seeds_cat"].shape[0],
+                             **{n: kernel_device_ms(f, n) for n, f in calls.items()}}
+    return out
+
+
+def ps_inputs(container: bytes, device, seed: int = 7):
+    """(label, plane_scan_fused arguments on `device`) of the shapes the
+    kernel is held and timed at beside the shipping and frontier buckets:
+    the two quantile buckets of one 2 MiB file bucket (file_buckets) and
+    every fuzz_scan(seed) pattern."""
+    import numpy as np
+    import torch
+
+    _, buckets = file_buckets(container, device)
+    for i, (staged, _) in enumerate(buckets):
+        yield f"file_q{i}", ps_args(staged)
+    del buckets
+    put = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
+    for pat, (sd, wins, ns, steps, pri) in fuzz_scan(seed).items():
+        yield pat, (put(sd.view(np.int32)), tuple(put(w) for w in wins), put(ns), steps,
+                    None if pri is None else tuple(put(a) for a in pri))
+
+
+def check_scan(tally: Tally, container: bytes, device, timing: dict) -> dict:
+    """Phase kernels_scan: plane_scan against its plain version, exact,
+    untimed in the tally, at every ps_inputs shape; each timed (ps_timing)
+    beside the shipping buckets (held in kernels) and the frontier ones
+    (held in e2e_frontier, their timings given in `timing`); the four wide
+    decode kernels' device ms a launch on the shipping buckets and on the
+    file bucket's two (wide_device_ms). Returns the phase's fields."""
+    from nlzm_tpu_torch.ops import wide_decode as wd
+
+    t0 = time.perf_counter()
+    info, buckets = stage(container, device)
+    ship = {f"ship_b{i}": ps_timing(ps_args(staged)) for i, (staged, _) in enumerate(buckets)}
+    wide_ms = wide_device_ms(info.block_size, buckets, "ship")
+    del buckets
+    wide_ms.update(wide_device_ms(*file_buckets(container, device), "file"))
+    timing = {**ship, **timing}
+    for label, ps in ps_inputs(container, device):
+        tally.hold("plane_scan", lambda: wd.plane_scan_fused(*ps),
+                   lambda: wd.plane_scan_fused_ref(*ps), timed=False)
+        timing[label] = ps_timing(ps)
+    return {"ps_timing": timing, "ship_sum_ms": sum(t["ms"] for t in ship.values()),
+            "ship_sum_device_ms": sum(t["device_ms"] or 0.0 for t in ship.values()),
+            "wide_device_ms": wide_ms,
+            "seconds": time.perf_counter() - t0}
+
+
 def check_fm(tally: Tally, corpus: bytes, device) -> dict:
     """Phase kernels_fm: find_matches against its plain version, exact,
     untimed in the tally, at every fm_inputs shape; each timed
@@ -3234,8 +3694,8 @@ def run_opt_encode(tally: Tally, data: bytes, device, card: str, greedy: dict):
     shape = check_kernels_opt(tally, data, device)
     emit({"phase": "kernels_opt", "ok": True, **shape, "kernels": tally.summary(OPT_KERNELS),
           "timing": f"CUDA events, mean of {KERNEL_REPS} back-to-back calls (dp_parse: summed "
-                    f"over its two cost rows); plain: 1 call after its comparison call "
-                    f"(measure_costs {KERNEL_REPS})", "card": card})
+                    f"over its two cost rows); plain: 1 call (its comparison call past 1 s; "
+                    f"measure_costs {KERNEL_REPS})", "card": card})
 
     N = V1_OPT["block_size"]
     by_path = {}
@@ -3587,7 +4047,7 @@ def check_research(tally: Tally, data: bytes, hc: bytes, blob: bytes, device):
     hs = st[:5] + st[6:]
     B, T = st[0].shape[0], st[6]
     tally.hold("huff_scan", lambda: huff0._huff_scan(*hs), lambda: huff0._huff_scan_ref(*hs),
-               reps_plain=1, work=huff_work(hs))
+               reps_plain=0, work=huff_work(hs))
     huff = {"huff0_245x32768": huff_timing(hs)}
     small = huff0._truncated(huff0.encode(data[: HUFF0_TRUNC["bytes"]], HUFF0_TRUNC["block_size"]))
     ts = huff0.stage_blocks(small, *huff0._parse(small), device)
@@ -3607,7 +4067,7 @@ def check_research(tally: Tally, data: bytes, hc: bytes, blob: bytes, device):
     chunks = len(ppm_tpu.chunk_schedule(steps))
     work = ppm_decode_work(pd, ppm_tpu._decode_blocks(*pd))  # the decoded bytes, for the count
     tally.hold("ppm_decode", lambda: ppm_tpu._decode_blocks(*pd),
-               lambda: ppm_tpu._decode_blocks_ref(*pd), reps_plain=1, work=work)
+               lambda: ppm_tpu._decode_blocks_ref(*pd), reps_plain=0, work=work)
     ppm = {"nlzc_256x512": ppm_timing(pd)}
     for label, args in ppm_inputs(pd, device):
         tally.hold("ppm_decode", lambda: ppm_tpu._decode_blocks(*args),
@@ -3642,7 +4102,7 @@ def run_research(tally: Tally, data: bytes, device, card: str):
     emit({"phase": "kernels_research", "ok": True, **shape,
           "kernels": tally.summary(RESEARCH_KERNELS), "seconds": time.perf_counter() - t0,
           "timing": f"CUDA events, mean of {KERNEL_REPS} back-to-back calls; plain: 1 call "
-                    f"after its comparison call; huff_scan_timing, ppm_decode_timing: device "
+                    f"(its comparison call past 1 s); huff_scan_timing, ppm_decode_timing: device "
                     f"ms from torch.profiler, ns a symbol of the [B, T] output (huff_scan) or "
                     f"a read of a block's chain (ppm_decode), rows and groups built from the "
                     f"kernel's counters beside the bound's (ppm_rows), registers, CTAs an SM "
@@ -3756,7 +4216,7 @@ def main() -> int:
     tally = Tally()
     corpus = build_corpus(max(SHIP_BYTES, V1_ENC_BYTES))
     data = corpus[:SHIP_BYTES]
-    wide_c, wide_launches = run_wide(tally, data, "cuda", card)
+    wide_c, wide_launches, frontier_ps = run_wide(tally, data, "cuda", card)
     v1_c, v1_launches = run_v1(tally, data, "cuda", card)
     stream_launches = run_stream([("wide_ship", data, wide_c, WIDE_KERNELS),
                                   ("v1_bench", data, v1_c, V1_KERNELS)], "cuda", card)
@@ -3788,11 +4248,17 @@ def main() -> int:
           "timing": f"CUDA events, mean of {KERNEL_REPS} back-to-back calls; device_ms from "
                     f"torch.profiler; registers, CTAs an SM and waves from the CUDA runtime",
           "card": card})
+    scan = check_scan(tally, wide_c, "cuda", frontier_ps)
+    emit({"phase": "kernels_scan", "ok": True, **scan,
+          "timing": f"CUDA events, mean of {KERNEL_REPS} back-to-back calls of the main path's "
+                    f"entry (no prior check); device_ms from torch.profiler; ns a step of the "
+                    f"bucket's steps; registers, CTAs an SM and waves from the CUDA runtime",
+          "card": card})
     plane_launches, plane_shape = check_plane_decode(tally, wide_c, "cuda")
     emit({"phase": "kernels_plane_decode", "ok": True, **plane_shape,
           "kernels": tally.summary(("plane_decode",)), "launches": plane_launches,
           "timing": f"CUDA events, mean of {KERNEL_REPS} back-to-back calls, summed over the "
-                    f"ten wire planes (two buckets); plain: 1 call after its comparison call",
+                    f"ten wire planes (two buckets); plain: 1 call (its comparison call past 1 s)",
           "card": card})
     research_launches = run_research(tally, corpus, "cuda", card)
 

@@ -151,13 +151,44 @@ def _uniform_fences(B: int, nsym: int, device):
     return f.expand(B, nsym + 1)
 
 
-def plane_scan_fused_ref(seeds, wins, n_syms, steps: int, priors=None):
-    """Plain version of plane_scan_fused: one loop iteration per step,
-    lanes as tensors, u32 lane states carried as int64 masked to 32 bits."""
+PRIOR_MAX = 0xFFFF  # a container's priors are u16 (format/wide.py parse_priors)
+
+
+def _check_priors(priors) -> None:
+    """Raise ValueError unless every prior value is in 0..65535 (one
+    torch.aminmax). A container carries its priors as u16, and the
+    kernel's 32-bit rebuild holds for that domain; past it JAX's int32
+    products and sums wrap and tot + 1 can reach 0, so there is no single
+    answer to match."""
+    if priors is None:
+        return
+    flat = torch.cat([torch.as_tensor(a).reshape(-1) for a in priors])
+    if flat.numel():
+        lo, hi = torch.aminmax(flat)
+        if bool((lo < 0) | (hi > PRIOR_MAX)):  # one copy back
+            raise ValueError("plane_scan_fused: prior values must be in 0..65535")
+
+
+def _cat_windows(wins):
+    """JAX's pair source: each chunk's five windows concatenated in wire
+    order and zero-padded to a multiple of 64 columns, [NC, B, WHc], and
+    each plane's first column."""
+    WHs = [int(w.shape[2]) for w in wins]
+    base = [int(v) for v in np.cumsum([0] + WHs)[:NP]]
+    NC, B = wins[0].shape[:2]
+    pad = -sum(WHs) % 64
+    parts = [w.long() for w in wins] + [torch.zeros(NC, B, pad, dtype=torch.long,
+                                                    device=wins[0].device)]
+    return torch.cat(parts, dim=2), base
+
+
+def _scan_ref(seeds, wins, n_syms, steps: int, priors=None):
     B = seeds.shape[0]
     dev = seeds.device
     x = seeds.long() & _U32
     nsym = n_syms.long()
+    cat, base_w = _cat_windows(wins)
+    WHc = cat.shape[2]
     carries, fences = [], []
     for q in range(NP):
         a = SLOT_ALPH[q]
@@ -188,7 +219,12 @@ def plane_scan_fused_ref(seeds, wins, n_syms, steps: int, priors=None):
                 ren = active & (x2 < (1 << 16))
                 r = ren.long()
                 rank = r.cumsum(1) - r
-                pair = gather_rows(wins[p][c], rel[q] + rank).long()
+                # JAX's index: past its own window a lane reads the next
+                # planes' windows of the chunk, then the zero padding
+                if WHc:
+                    pair = gather_rows(cat[c], base_w[p] + rel[q] + rank).long()
+                else:
+                    pair = torch.zeros_like(rank)
                 xn = torch.where(ren, ((x2 << 16) | pair) & _U32, x2)
                 x[:, lo:hi] = torch.where(active, xn, xq)
                 rel[q] = rel[q] + r.sum(1, keepdim=True)
@@ -200,6 +236,14 @@ def plane_scan_fused_ref(seeds, wins, n_syms, steps: int, priors=None):
             carries[q] = (carries[q] >> 1) + counts[q]
             fences[q] = _build_cdf(carries[q], SLOT_ALPH[q])
     return tuple(outs[PLANE_SLOT[p]].reshape(B, steps * PLANES[p].lanes) for p in range(NP))
+
+
+def plane_scan_fused_ref(seeds, wins, n_syms, steps: int, priors=None):
+    """Plain version of plane_scan_fused: one loop iteration per step over
+    all steps, lanes as tensors, u32 lane states carried as int64 masked to
+    32 bits. Raises ValueError for a prior outside 0..65535."""
+    _check_priors(priors)
+    return _scan_ref(seeds, wins, n_syms, steps, priors)
 
 
 @functools.lru_cache(maxsize=64)
@@ -216,14 +260,32 @@ def plane_scan_fused(seeds, wins, n_syms, steps: int, priors=None):
     seeds [B, 208] int32 (u32 bits): lane states in slot order. wins: NP
     windows [NC, B, WH_p] int32, wire order, NC = len(chunk_schedule(
     steps)). n_syms [B, NP] int32, wire order. priors: optional NP
-    int32 tensors of the plane alphabet's warm-start counts, wire order.
-    Returns NP symbol arrays [B, steps * L_p] int32, wire order; a lane
-    past its plane's symbol count emits 0.
+    int32 tensors of the plane alphabet's warm-start counts, wire order,
+    each value in 0..65535 (else ValueError). Returns NP symbol arrays
+    [B, steps * L_p] int32, wire order; a lane past its plane's symbol
+    count emits 0. A renorm pair index past the plane's window reads, as
+    JAX does, the chunk's windows concatenated in wire order and padded
+    with zeros to a multiple of 64 columns.
     """
+    _check_priors(priors)
+    return _plane_scan_fused(seeds, wins, n_syms, steps, priors)
+
+
+def slot_priors(priors):
+    """The five wire-order prior tensors as the kernel reads them: one
+    int32 tensor in slot order (tok|len|dst|lit|lex), or None."""
+    if priors is None:
+        return None
+    return torch.cat([priors[p].reshape(-1) for p in SLOT_PLANE]).to(torch.int32)
+
+
+def _plane_scan_fused(seeds, wins, n_syms, steps: int, priors=None, slot_pri=None):
+    """plane_scan_fused without the prior check: for priors staged from a
+    container's u16 blob, in range by construction (no host sync).
+    slot_pri: slot_priors(priors), staged once; None builds it here."""
     if seeds.device.type == "cpu":
-        return plane_scan_fused_ref(seeds, wins, n_syms, steps, priors)
-    pri = None if priors is None else torch.cat(
-        [priors[p].reshape(-1) for p in SLOT_PLANE]).to(torch.int32)
+        return _scan_ref(seeds, wins, n_syms, steps, priors)
+    pri = slot_priors(priors) if slot_pri is None else slot_pri
     _build.check_cuda("plane_scan_fused", seeds, n_syms, pri, *wins)
     B = seeds.shape[0]
     sched = chunk_schedule(steps)
@@ -236,8 +298,10 @@ def plane_scan_fused(seeds, wins, n_syms, steps: int, priors=None):
                          "five int32 windows [NC,B,WH], priors of the plane alphabets")
     dev = seeds.device
     sched_t = _schedule_tensor(steps, dev)
-    outs = [torch.empty(B, steps * PLANES[p].lanes, dtype=torch.int32, device=dev)
-            for p in range(NP)]
+    # one allocation, split into the five planes' outputs
+    widths = [steps * PLANES[p].lanes for p in range(NP)]
+    flat = torch.empty(B * sum(widths), dtype=torch.int32, device=dev)
+    outs = [o.view(B, w) for o, w in zip(flat.split([B * w for w in widths]), widths)]
     fn = _build.entry("plane_scan", "nlzm_plane_scan", 14, 8)
     _build.launch(
         fn,
@@ -626,8 +690,9 @@ def staged_from_jax(staged_np: dict, device) -> dict:
     numpy converts will do). The port's dict: seeds_cat [B, 208] int32
     (u32 bits), hw_cat [B, H] int16 and bit_half [B, Hb] int16 (u16
     bits), offs [B, 5, NC] / ends [B, 5] int32, n_sym [B, 5] int32,
-    priors (five int32 [alph] tensors, wire order) or None, dict_arr [D]
-    uint8 or None, all on `device`; and the host-side WHs, steps (int)
+    priors (five int32 [alph] tensors, wire order) or None, slot_priors
+    (slot_priors(priors): what the kernel reads), dict_arr [D] uint8 or
+    None, all on `device`; and the host-side WHs, steps (int)
     and rounds_hint. (nlzm_tpu's "bases" and "B" are implied by the
     shapes and not carried.)
     """
@@ -654,6 +719,7 @@ def staged_from_jax(staged_np: dict, device) -> dict:
         "rounds_hint": staged_np.get("rounds_hint"),
         "dict_arr": None,
     }
+    out["slot_priors"] = slot_priors(out["priors"])  # as the kernel reads them
     if staged_np.get("dict_arr") is not None:
         out["dict_arr"] = put(staged_np["dict_arr"], np.uint8)
     return out
@@ -695,8 +761,9 @@ def stage_windows_of(staged):
 def decode_wide_staged(staged, block_size: int):
     """Staged plane streams -> (out [B, block_size] uint8, produced [B])."""
     n_sym = staged["n_sym"]
-    ys = plane_scan_fused(
-        staged["seeds_cat"], stage_windows_of(staged), n_sym, staged["steps"], staged["priors"]
+    ys = _plane_scan_fused(
+        staged["seeds_cat"], stage_windows_of(staged), n_sym, staged["steps"], staged["priors"],
+        staged.get("slot_priors"),
     )
     if block_size <= CAP15:
         ys = tuple(a[:, : min(a.shape[1], CAP15)] for a in ys)
