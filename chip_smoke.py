@@ -128,6 +128,16 @@ card and fails (nonzero exit, no result line) on anything wrong:
     device ms, ns a step, the checked wrapper's ms, registers, CTAs an SM,
     waves), the four wide decode kernels' device ms a launch on the
     shipping buckets and that file bucket's, and the phase's seconds;
+    then phase kernels_expand: lz_expand (csrc/lz_expand.cu) against its
+    plain version, exact, on the two quantile buckets of one 2 MiB file
+    bucket, the 512 KiB buckets of 10, rle_deep_chains (8 KiB blocks) at
+    its hint and at 0 and 1, 2 x 1 MiB blocks (the masks in device
+    memory) and every fuzz_expand pattern at its depth's hint, none, 0
+    and 1 (the four fault classes of JAX's packed words among them); each
+    input timed once beside the shipping and frontier buckets at their
+    hint and at 0 and 1 and the v1 bench bucket (ex_timing: ms, device ms
+    of both kernels, ns a position, the host's us a call, registers, CTAs
+    an SM, waves, the scratch bytes), and the phase's seconds;
 20. e2e_enc_v1_opt: encode_container(parser="optimal", engine="device")
     of the 8 MiB at 8 KiB blocks, checked as 17; MB/s, the ratio and 17's
     greedy ratio;
@@ -1873,6 +1883,259 @@ def fuzz_scan(seed: int, names=None) -> dict:
     return {k: pats[k]() for k in (names or pats)}
 
 
+def fuzz_expand(seed: int, names=None) -> dict:
+    """Inputs of lz_expand_parallel drawn from a seed, for the worst cases
+    of csrc/lz_expand.cu: (op_len [T, B] int32, op_val [T, B] int32, N,
+    dictionary [D] uint8 or None) a pattern. The draw: op_len uniform in
+    1..11, half of the slots then literals (op_len 0, op_val 0..255), a
+    match's distance 1..63; B = 3 and T = N / 8 at N = 4096 without a
+    dictionary ("_4k") and at the shipping shape, N = 32768 with a 32 KiB
+    dictionary ("_ship"):
+    - "valid": the draw;
+    - "delta_big", "delta_neg": each block's 6th match at distance 2^17,
+      at -3; "lit_big": each block's 6th literal's op_val 40000;
+      "past_end": the last 16 slots matches of 8 KiB at distance 1 (the
+      four classes where JAX's packed words leave their packing);
+    - "b1" (ship): the draw at B = 1; "rle_one" (ship, B = 1): one literal,
+      then one match of N - 1 at distance 1;
+    - "dict_far" (ship): distances up to 20,000 past the dictionary;
+    - "deep_chain" (4k): each match copies the command before it (chains
+      ~N / 8 deep); "zero_delta": a tenth of the matches at distance 0;
+      "pad_middle": a fifth of the slots padding (op_len -1..-5) between
+      live ones; "past_n": lengths to 40 (the sum passes N);
+      "past_2_31": lengths of ~2^30 and 2^31 - 1 in each block (the sum
+      passes 2^31, and 2^32 in block 2);
+    - "t0" (4k): T = 0 (JAX's expansion raises there).
+    names: the patterns to return (default all)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    shapes = {"4k": (3, 4096, 0), "ship": (3, 32768, 32768)}
+    dicts = {D: rng.integers(0, 256, D).astype(np.uint8) for D in (32768,)}
+
+    def draw(B, N, max_len=11, max_dist=63):
+        T = N // 8
+        ol = rng.integers(1, max_len + 1, (T, B))
+        lit = rng.random((T, B)) < 0.5
+        ol[lit] = 0
+        ov = np.where(lit, rng.integers(0, 256, (T, B)), rng.integers(1, max_dist + 1, (T, B)))
+        return ol.astype(np.int64), ov.astype(np.int64)
+
+    def nth(mask, n):
+        """(rows, cols) of each block's n-th True slot in mask [T, B]."""
+        rows = np.argmax(np.cumsum(mask, 0) == n, 0)
+        return rows, np.arange(mask.shape[1])
+
+    def make(shape, change=None, B=None, **kw):
+        B0, N, D = shapes[shape]
+        ol, ov = draw(B or B0, N, **kw)
+        if change is not None:
+            change(ol, ov, N)
+        return (ol.astype(np.int32), ov.astype(np.int32), N, dicts.get(D))
+
+    def set_nth(kind, value):
+        def change(ol, ov, N):
+            ov[nth(ol > 0 if kind == "match" else ol == 0, 6)] = value
+        return change
+
+    def past_end(ol, ov, N):
+        ol[-16:], ov[-16:] = 8192, 1
+
+    def rle_one(ol, ov, N):
+        ol[:], ov[:] = -1, 0
+        ol[0], ov[0], ol[1], ov[1] = 0, 0x5A, N - 1, 1
+
+    def dict_far(ol, ov, N):
+        m = ol > 0
+        ov[m] = rng.integers(1, 32768 + 20000, m.sum())
+
+    def deep_chain(ol, ov, N):
+        T, B = ol.shape
+        for b, period in enumerate((8, 3, None)):
+            if period is None:
+                ol[:, b] = rng.integers(1, 12, T)
+                ol[0, b], ov[:, b] = 0, 0
+                ov[1:, b] = ol[:-1, b]
+                ov[1, b] = 1
+            else:
+                ol[:period, b], ov[:period, b] = 0, rng.integers(0, 256, period)
+                ol[period:, b], ov[period:, b] = period, period
+
+    def zero_delta(ol, ov, N):
+        ov[(ol > 0) & (rng.random(ol.shape) < 0.1)] = 0
+
+    def pad_middle(ol, ov, N):
+        pad = rng.random(ol.shape) < 0.2
+        ol[pad] = rng.integers(-5, 0, pad.sum())
+
+    def past_2_31(ol, ov, N):
+        ol[100, 0] = (1 << 31) - 1
+        ol[100:102, 1] = 1 << 30
+        ol[200, 2] = ol[300, 2] = ol[400, 2] = (1 << 31) - 1
+
+    pats = {
+        **{f"valid_{s}": (lambda s=s: make(s)) for s in shapes},
+        **{f"delta_big_{s}": (lambda s=s: make(s, set_nth("match", 1 << 17))) for s in shapes},
+        **{f"delta_neg_{s}": (lambda s=s: make(s, set_nth("match", -3))) for s in shapes},
+        **{f"lit_big_{s}": (lambda s=s: make(s, set_nth("literal", 40000))) for s in shapes},
+        **{f"past_end_{s}": (lambda s=s: make(s, past_end)) for s in shapes},
+        "b1": lambda: make("ship", B=1),
+        "rle_one": lambda: make("ship", rle_one, B=1),
+        "dict_far": lambda: make("ship", dict_far),
+        "deep_chain": lambda: make("4k", deep_chain),
+        "zero_delta": lambda: make("4k", zero_delta),
+        "pad_middle": lambda: make("4k", pad_middle),
+        "past_n": lambda: make("4k", max_len=40),
+        "past_2_31": lambda: make("4k", past_2_31),
+        "t0": lambda: tuple(np.zeros((0, 3), np.int32) for _ in range(2)) + (4096, None),
+    }
+    return {k: pats[k]() for k in (names or pats)}
+
+
+def expand_packed_model(ol, ov, s32, prod, N: int, D: int, dict_arr, rounds_hint):
+    """csrc/lz_expand.cu's lz_expand_packed_kernel on one flagged block:
+    JAX's packed-path sorts word for word (u32 words in int64), the rounds,
+    the corner patch and the zeroing past prod. ol, ov, s32: the block's
+    [T] int64 op_len, op_val and int32-wrapped starts."""
+    import numpy as np
+
+    M32, PAD = 0xFFFFFFFF, 0xFFFFFFFF
+    i = np.arange(N, dtype=np.int64)
+
+    def fill(src, qry, pb, post):
+        pmask = (1 << pb) - 1
+        s = np.sort(np.concatenate([src, qry]))
+        q = (((s >> pb) & 1) == 1) & (s != PAD)
+        f = np.maximum.accumulate(np.where(q | (s == PAD), 0, s))
+        key = np.where(q, ((s & pmask) << pb) | post(f, s & pmask), PAD)
+        return np.sort(key)[:N] & pmask
+
+    pb = 16 if D else 15
+    lens = np.where(ol < 0, 0, np.where(ol == 0, 1, ol))
+    src = np.where(lens > 0, (((s32 & M32) << (pb + 1)) & M32) | (np.where(ol == 0, 0, ov) & M32),
+                   PAD)
+
+    def post_parent(f, qpay):
+        m, d = f >> (pb + 1), f & ((1 << pb) - 1)
+        par = np.where(d == 0, qpay, m - d + np.mod(qpay - m, np.maximum(d, 1)))
+        return np.clip(par + D, 0, D + N - 1)
+
+    cur = fill(src, (((i << 1) | 1) << pb) | i, pb, post_parent)
+    bound = max(1, (N - 1).bit_length())
+    bound = bound if rounds_hint is None else min(int(rounds_hint), bound)
+    for _ in range(bound):
+        nxt = np.where(cur >= D, cur[np.clip(cur - D, 0, N - 1)], cur)
+        changed = (nxt != cur).any()
+        cur = nxt
+        if not changed:
+            break
+    lit = ol == 0
+    pos = (s32 + D) & M32
+    src = np.where(lit, ((pos << 16) & M32) | (ov & M32), PAD)
+    if D:
+        src = np.concatenate([(np.arange(D, dtype=np.int64) << 16) | dict_arr, src])
+    key = np.minimum(cur, D + N - 2) if D else cur
+    out = fill(src, (((key << 1) | 1) << 15) | i, 15, lambda f, qpay: f & 0xFF)
+    if D and cur[N - 1] == D + N - 1:
+        out[N - 1] = int(np.where(lit & (s32 == N - 1), ov, 0).sum()) & 0xFF
+    return np.where(i < prod, out & 0xFF, 0).astype(np.uint8)
+
+
+def expand_model(op_len, op_val, N: int, rounds_hint=None, dict_arr=None, stats=None):
+    """numpy model of csrc/lz_expand.cu (op_len, op_val [T, B] int32;
+    dict_arr [D] uint8 or None) -> (out [B, N] uint8, produced [B] int32):
+    on JAX's packed path, the kernel's packing check and, for a flagged
+    block, expand_packed_model; else each block as lz_expand_kernel runs
+    it: int64 starts, the start marks and a max-scan for each position's
+    covering command, its parent m - d + ((i - m) mod d) shifted by D and
+    clamped (u16 on the packed path), positions past the produced count
+    rooted at themselves; synchronous rounds, stopped after one that
+    changes nothing; the byte pass with the packed path's corner and cap,
+    and, when a parent is neither in the dictionary nor a literal, the
+    literal bytes rewritten with the latest literal's (or the last
+    dictionary byte) and the pass again. stats, when given, gets per block
+    "flagged", "rounds" (those that changed something) and "unresolved"."""
+    import numpy as np
+
+    T, B = op_len.shape
+    D = 0 if dict_arr is None else len(dict_arr)
+    packed = N <= 32768 and D + N <= 1 << 16
+    top = D + N - 1
+    dct = None if dict_arr is None else np.asarray(dict_arr).astype(np.int64)
+    ol = op_len.T.astype(np.int64)
+    ov = op_val.T.astype(np.int64)
+    lens = np.where(ol < 0, 0, np.where(ol == 0, 1, ol))
+    ends = np.cumsum(lens, 1)
+    starts = ends - lens
+    total = ends[:, -1] if T else np.zeros(B, np.int64)
+    wrap = lambda x: ((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+    prod, s32 = wrap(total), wrap(starts)
+    delta = np.where(ol == 0, 0, ov)
+    flagged = np.zeros(B, bool)
+    if packed:
+        span, pay = (1 << 15, 1 << 16) if D else (1 << 16, 1 << 15)
+        bad = (lens > 0) & ((s32 < 0) | (s32 >= span) | (delta < 0) | (delta >= pay))
+        bad |= (ol == 0) & ((ov < 0) | (ov >= 1 << 15) | (s32 + D >= 1 << 16))
+        flagged = bad.any(1)
+    i = np.arange(N, dtype=np.int64)
+    out = np.zeros((B, N), np.uint8)
+    st = {"flagged": flagged.tolist(), "rounds": [], "unresolved": []}
+    for b in range(B):
+        if flagged[b]:
+            out[b] = expand_packed_model(ol[b], ov[b], s32[b], prod[b], N, D, dct, rounds_hint)
+            st["rounds"].append(None)
+            st["unresolved"].append(None)
+            continue
+        live = (lens[b] > 0) & (starts[b] < N)
+        mk = starts[b][live]
+        delta_at = np.zeros(N, np.int64)
+        delta_at[mk] = delta[b][live] & 0xFFFF if packed else delta[b][live]
+        mark = np.full(N, -1, np.int64)
+        mark[mk] = mk
+        m = np.maximum.accumulate(mark)
+        d = np.where(m >= 0, delta_at[np.maximum(m, 0)], 0)
+        par = np.where((m < 0) | (i >= total[b]) | (d == 0), i,
+                       m - d + np.mod(i - m, np.maximum(d, 1)))
+        cur = np.clip(par + D, 0, top)
+        if packed:
+            assert cur.max(initial=0) < 1 << 16  # the u16 parents
+            cur = cur.astype(np.uint16).astype(np.int64)
+        bound = max(1, (N - 1).bit_length())
+        bound = bound if rounds_hint is None else min(int(rounds_hint), bound)
+        changed_rounds = 0
+        for _ in range(bound):
+            nxt = np.where(cur >= D, cur[np.clip(cur - D, 0, N - 1)], cur)
+            changed = (nxt != cur).any()
+            cur = nxt
+            if not changed:
+                break
+            changed_rounds += 1
+        lits = live & (ol[b] == 0)
+        lit = np.zeros(N, np.int64)
+        lit[starts[b][lits]] = ov[b][lits] & 0xFF
+        lmask = np.zeros(N, bool)
+        lmask[starts[b][lits]] = True
+        sort_dict = packed and D > 0
+        q = np.minimum(cur, top - 1) if sort_dict else cur
+        j = np.clip(q - D, 0, N - 1)
+        from_dict = q < D
+        unresolved = (i < prod[b]) & ~from_dict & ~lmask[j]
+        if unresolved.any():
+            lpos = np.maximum.accumulate(np.where(lmask, i, -1))
+            none = int(dct[D - 1]) if sort_dict else 0
+            lit = np.where(lmask, lit, np.where(lpos >= 0, lit[np.maximum(lpos, 0)], none))
+        byte = np.where(from_dict, 0 if dct is None else dct[np.clip(q, 0, max(D - 1, 0))],
+                        lit[j])
+        if sort_dict and cur[N - 1] == top:
+            byte[N - 1] = lit[N - 1] if lmask[N - 1] else 0
+        out[b] = np.where(i < prod[b], byte, 0).astype(np.uint8)
+        st["rounds"].append(changed_rounds)
+        st["unresolved"].append(bool(unresolved.any()))
+    if stats is not None:
+        stats.update(st)
+    return out, prod.astype(np.int32)
+
+
 def ps_quot(n, d):
     """csrc/plane_scan.cu's quot: floor(n / d) for 0 <= n < 2^31 and d >= 1,
     as the multiply-high of n by floor((2^32 - 1) / d) and one correction
@@ -2421,7 +2684,7 @@ def expect_integrity_error(label, bad: bytes, good: bytes, data: bytes, device):
 
 def run_wide(tally: Tally, data: bytes, device, card: str):
     """Phases 3-6; returns (the shipping container, main-path launches,
-    plane_scan's timings on the frontier buckets)."""
+    plane_scan's timings on the frontier buckets, the frontier container)."""
     from nlzm_tpu_torch.ops import wide_decode as wd
     from nlzm_tpu_torch.parallel.blocks import encode_container
 
@@ -2448,11 +2711,12 @@ def run_wide(tally: Tally, data: bytes, device, card: str):
     frontier_ps = check_frontier_hints(tally, fcont, device)
 
     expect_integrity_error("corrupt", corrupt_copy(container), container, data, device)
-    return container, launches, frontier_ps
+    return container, launches, frontier_ps, fcont
 
 
 def run_v1(tally: Tally, data: bytes, device, card: str):
-    """Phases 7-11; returns (the bench v1 container, main-path launches)."""
+    """Phases 7-11; returns (the bench v1 container, main-path launches, the
+    512 KiB container)."""
     from nlzm_tpu_torch.ops.decode_v2 import fsm_decode_v2
     from nlzm_tpu_torch.parallel.blocks import (
         block_payloads, decode_v1_staged, encode_container, parse_container, stage_v1_buckets,
@@ -2506,7 +2770,7 @@ def run_v1(tally: Tally, data: bytes, device, card: str):
     bad = bytearray(container)
     bad[info.payload_off + info.comp_sizes[0] // 2] ^= 0x40  # mid-payload bit
     expect_integrity_error("corrupt_v1", bytes(bad), container, data, device)
-    return container, launches
+    return container, launches, big_c
 
 
 def bench_commands(data: bytes):
@@ -3125,8 +3389,10 @@ def rans_work(spans, cap: int):
 
 
 def kernel_device_ms(fn, key: str, reps: int = KERNEL_REPS):
-    """Mean device ms of the kernels whose name holds `key`, over reps calls
-    of fn() under torch.profiler after one warm-up call: the kernel alone,
+    """Device ms a call of the kernels whose name holds `key`: each one's
+    mean over its launches in reps calls of fn() under torch.profiler
+    after one warm-up call, summed over those kernels (a call launching
+    each once: lz_expand launches two on JAX's packed path): the kernels alone,
     without the wrapper's host time (which back-to-back CUDA-event means
     include once a call is shorter than it), over the launches traced: a
     profile may lose some of the tracer's records, and late in a long run
@@ -3142,13 +3408,10 @@ def kernel_device_ms(fn, key: str, reps: int = KERNEL_REPS):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total, n = 0.0, 0
-        for e in prof.key_averages():
-            if key in e.key:
-                total += getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
-                n += e.count
-        if n:
-            return total / n / 1e3
+        means = [(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0))
+                 / e.count for e in prof.key_averages() if key in e.key and e.count]
+        if means:
+            return sum(means) / 1e3
     return None
 
 
@@ -3515,6 +3778,172 @@ def check_scan(tally: Tally, container: bytes, device, timing: dict) -> dict:
             "ship_sum_device_ms": sum(t["device_ms"] or 0.0 for t in ship.values()),
             "wide_device_ms": wide_ms,
             "seconds": time.perf_counter() - t0}
+
+
+def wide_commands(staged, block_size: int):
+    """(op_len, op_val) of a staged wide bucket through the kernels, as
+    decode_wide_staged makes them."""
+    from nlzm_tpu_torch.ops import wide_decode as wd
+
+    ys = wd._plane_scan_fused(staged["seeds_cat"], wd.stage_windows_of(staged), staged["n_sym"],
+                              staged["steps"], staged["priors"], staged["slot_priors"])
+    if block_size <= wd.CAP15:
+        ys = tuple(a[:, : min(a.shape[1], wd.CAP15)] for a in ys)
+    tok_y, lit_y, len_y, lex_y, slot_y = ys
+    return wd.assemble_ops(tok_y, len_y, lex_y, lit_y, slot_y, staged["bit_half"],
+                           staged["n_sym"][:, 0].contiguous())
+
+
+def ex_shape(T: int, B: int, N: int, D: int) -> dict:
+    """csrc/lz_expand.cu's launch at this shape on this card
+    (nlzm_lz_expand_shape): threads a CTA, dynamic shared bytes, registers
+    a thread (cudaFuncGetAttributes), resident CTAs an SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), the waves of its B
+    CTAs, whether it takes JAX's packed path, whether the masks are in
+    shared memory and whether the commands are transposed first; the
+    scratch bytes, the wrapper's size checked against the C layout's
+    (nlzm_lz_expand_scratch)."""
+    import ctypes
+
+    import torch
+
+    from nlzm_tpu_torch import _build
+    from nlzm_tpu_torch.ops import expand_ops as xo
+
+    dev = torch.cuda.current_device()
+    out = (ctypes.c_int * 9)()
+    st = _build.entry("lz_expand", "nlzm_lz_expand_shape", 1, 4)(
+        ctypes.addressof(out), T, B, N, D, dev, None)
+    words = ctypes.c_longlong()
+    st = st or _build.entry("lz_expand", "nlzm_lz_expand_scratch", 1, 4)(
+        ctypes.addressof(words), T, B, N, D, dev, None)
+    if st:
+        raise RuntimeError(f"nlzm_lz_expand_shape: CUDA error {st}")
+    if words.value != xo.scratch_words(T, B, N, D):
+        raise AssertionError(f"scratch words {xo.scratch_words(T, B, N, D)} != {words.value}")
+    threads, smem, regs, ctas, sms, packed, in_smem, transposed, slot = out
+    return dict(threads=threads, smem_bytes=smem, registers=regs, ctas_per_sm=ctas,
+                waves=-(-B // (ctas * sms)) if ctas else None, packed_path=bool(packed),
+                masks_in_smem=bool(in_smem), transposed=bool(transposed),
+                scratch_bytes=4 * words.value)
+
+
+def ex_timing(args) -> dict:
+    """lz_expand on these arguments: CUDA-event mean of KERNEL_REPS
+    back-to-back calls (ms), the call's device time (device_ms,
+    kernel_device_ms: both kernels on JAX's packed path), ns a position
+    from each, host_us (the host's time to issue a call, not waiting for
+    the card), the bound (expand_work) and the launch shape (ex_shape)."""
+    import torch
+
+    from nlzm_tpu_torch.ops import expand_ops as xo
+
+    op_len, op_val, N, hint, dict_arr = args
+    call = lambda: xo.lz_expand_parallel(*args)
+    call()
+    ms = timed_mean(call, KERNEL_REPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(KERNEL_REPS):
+        call()
+    host_us = (time.perf_counter() - t0) * 1e6 / KERNEL_REPS
+    torch.cuda.synchronize()
+    dev_ms = kernel_device_ms(call, "lz_expand")
+    T, B = op_len.shape
+    pos = max(B * N, 1)
+    b_ms, b_by = bound(*expand_work(op_len, N, hint, dict_arr))
+    return dict(blocks=B, T=T, N=N, D=0 if dict_arr is None else dict_arr.numel(),
+                hint=hint, ms=ms, device_ms=dev_ms, host_us=host_us, ns_per_position=ms * 1e6 / pos,
+                device_ns_per_position=None if dev_ms is None else dev_ms * 1e6 / pos,
+                bound_ms=b_ms, bound_by=b_by, **ex_shape(T, B, N, 0 if dict_arr is None
+                                                        else dict_arr.numel()))
+
+
+# tests/test_torch_expand.py's RLE data (rle_deep_chains)
+RLE = (b"\x00" * 5000) + (b"ab" * 4000) + (b"xyz" * 3000) + b"tail" * 500
+
+
+def ex_inputs(wide_c: bytes, big_c: bytes, device, seed: int = 7):
+    """(label, lz_expand arguments on `device`, timed) of the shapes the kernel is
+    held at beside the main path's: the two quantile buckets of one 2 MiB
+    file bucket (file_buckets), the e2e_v1_512k buckets (their commands
+    from fsm_decode), tests/test_torch_expand.py's rle_deep_chains (8 KiB
+    blocks, wide, optimal; commands through the kernels) with its hint and
+    at hints 0 and 1, 2 x 1 MiB blocks of the fuzz draw (the masks in
+    device memory), and every fuzz_expand(seed) pattern at its depth's
+    hint (from expand_model; timed there), at none and at 0 and 1."""
+    import numpy as np
+    import torch
+
+    from nlzm_tpu_torch.ops.decode_v2 import fsm_decode_v2
+    from nlzm_tpu_torch.parallel.blocks import encode_container, parse_container, stage_v1_buckets
+
+    bs, buckets = file_buckets(wide_c, device)
+    for i, (staged, _) in enumerate(buckets):
+        yield f"file_q{i}", (*wide_commands(staged, bs), bs, staged["rounds_hint"],
+                             staged["dict_arr"]), True
+    del buckets
+    info = parse_container(big_c)
+    for i, (streams, steps, _) in enumerate(stage_v1_buckets(big_c, info, device=device)):
+        yield f"v1_512k_{i}", (*fsm_decode_v2(streams, steps), info.block_size, None, None), True
+    rle = encode_container(RLE, parser="optimal", profile="wide", block_size=8192)
+    rinfo, rb = stage(rle, device)
+    for i, (staged, _) in enumerate(rb):
+        ops = wide_commands(staged, rinfo.block_size)
+        for k, h in enumerate((staged["rounds_hint"], 0, 1)):
+            yield (f"rle_deep_chains_{i}_h{h}", (*ops, rinfo.block_size, h, staged["dict_arr"]),
+                   k == 0)
+    put = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
+    rng = np.random.default_rng(seed)
+    N = 1 << 20
+    ol = rng.integers(1, 12, (N // 8, 2))
+    lit = rng.random(ol.shape) < 0.5
+    ol[lit] = 0
+    ov = np.where(lit, rng.integers(0, 256, ol.shape), rng.integers(1, 64, ol.shape))
+    yield "global_masks", (put(ol.astype(np.int32)), put(ov.astype(np.int32)), N, None, None), True
+    for pat, (ol, ov, N, d) in fuzz_expand(seed).items():
+        st = {}
+        expand_model(ol, ov, N, None, d, st)
+        depth = max([r for r in st["rounds"] if r is not None] or [0])
+        for k, h in enumerate(dict.fromkeys((depth, None, 0, 1))):
+            yield f"{pat}_h{h}", (put(ol), put(ov), N, h, None if d is None else put(d)), k == 0
+
+
+def check_expand(tally: Tally, wide_c: bytes, v1_c: bytes, big_c: bytes, fcont: bytes,
+                 device) -> dict:
+    """Phase kernels_expand: lz_expand against its plain version, exact,
+    untimed in the tally, at every ex_inputs shape; each input timed once
+    (ex_timing) beside the main path's shapes (held in kernels,
+    e2e_frontier and kernels_v1): the shipping and the frontier buckets
+    at their hint and at 0 and 1, the v1 bench buckets. Returns the
+    phase's fields."""
+    from nlzm_tpu_torch.ops import expand_ops as xo
+    from nlzm_tpu_torch.ops.decode_v2 import fsm_decode_v2
+    from nlzm_tpu_torch.parallel.blocks import parse_container, stage_v1_buckets
+
+    t0 = time.perf_counter()
+    timing = {}
+    for tag, cont in (("ship", wide_c), ("frontier", fcont)):
+        info, buckets = stage(cont, device)
+        for i, (staged, _) in enumerate(buckets):
+            ops = wide_commands(staged, info.block_size)
+            for h in (staged["rounds_hint"], 0, 1):
+                label = f"{tag}_b{i}" + ("" if h == staged["rounds_hint"] else f"_h{h}")
+                timing[label] = ex_timing((*ops, info.block_size, h, staged["dict_arr"]))
+        del buckets
+    info = parse_container(v1_c)
+    for i, (streams, steps, _) in enumerate(stage_v1_buckets(v1_c, info, device=device)):
+        timing[f"v1_bench_b{i}"] = ex_timing((*fsm_decode_v2(streams, steps), info.block_size,
+                                              None, None))
+    hold_s = 0.0
+    for label, ex, timed in ex_inputs(wide_c, big_c, device):
+        h0 = time.perf_counter()
+        tally.hold("lz_expand", lambda: xo.lz_expand_parallel(*ex),
+                   lambda: xo.lz_expand_parallel_ref(*ex), timed=False)
+        hold_s += time.perf_counter() - h0
+        if timed:
+            timing[label] = ex_timing(ex)
+    return {"ex_timing": timing, "holds_seconds": hold_s, "seconds": time.perf_counter() - t0}
 
 
 def check_fm(tally: Tally, corpus: bytes, device) -> dict:
@@ -4216,8 +4645,8 @@ def main() -> int:
     tally = Tally()
     corpus = build_corpus(max(SHIP_BYTES, V1_ENC_BYTES))
     data = corpus[:SHIP_BYTES]
-    wide_c, wide_launches, frontier_ps = run_wide(tally, data, "cuda", card)
-    v1_c, v1_launches = run_v1(tally, data, "cuda", card)
+    wide_c, wide_launches, frontier_ps, front_c = run_wide(tally, data, "cuda", card)
+    v1_c, v1_launches, big_c = run_v1(tally, data, "cuda", card)
     stream_launches = run_stream([("wide_ship", data, wide_c, WIDE_KERNELS),
                                   ("v1_bench", data, v1_c, V1_KERNELS)], "cuda", card)
     greedy = {}
@@ -4253,6 +4682,12 @@ def main() -> int:
           "timing": f"CUDA events, mean of {KERNEL_REPS} back-to-back calls of the main path's "
                     f"entry (no prior check); device_ms from torch.profiler; ns a step of the "
                     f"bucket's steps; registers, CTAs an SM and waves from the CUDA runtime",
+          "card": card})
+    expand = check_expand(tally, wide_c, v1_c, big_c, front_c, "cuda")
+    emit({"phase": "kernels_expand", "ok": True, **expand,
+          "timing": f"CUDA events, mean of {KERNEL_REPS} back-to-back calls; device_ms from "
+                    f"torch.profiler (both kernels of a call); host_us the host's time to issue "
+                    f"a call; registers, CTAs an SM and waves from the CUDA runtime",
           "card": card})
     plane_launches, plane_shape = check_plane_decode(tally, wide_c, "cuda")
     emit({"phase": "kernels_plane_decode", "ok": True, **plane_shape,
