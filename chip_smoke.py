@@ -16,8 +16,9 @@ card and fails (nonzero exit, no result line) on anything wrong:
    wide-path kernel against its plain PyTorch version on the same device
    tensors at these main-path shapes (exact: the codec is integer and
    lossless), lz_expand also at round hints 0 and 1; times both with
-   CUDA events (plane_scan through the main path's entry, which takes the
-   container's u16 priors unchecked);
+   CUDA events (plane_scan, assemble and lz_expand through the main
+   path's entries: the container's u16 priors unchecked, the commands
+   handed over as [B, TP] pairs);
 4. e2e_ship: decode_container(device="cuda") must return the input
    (CRC-verified) with every kernel of the path launched; decode MB/s;
 5. e2e_frontier: the same at 128 KiB blocks, 128 KiB dictionary, depth
@@ -137,7 +138,22 @@ card and fails (nonzero exit, no result line) on anything wrong:
     input timed once beside the shipping and frontier buckets at their
     hint and at 0 and 1 and the v1 bench bucket (ex_timing: ms, device ms
     of both kernels, ns a position, the host's us a call, registers, CTAs
-    an SM, waves, the scratch bytes), and the phase's seconds;
+    an SM, waves, the scratch bytes), and the phase's seconds; then
+    phase kernels_assemble: the main path's _assemble_rows ([B, TP]
+    pairs, csrc/assemble.cu) and assemble_ops against their plain
+    versions, exact, on the shipping, file (a 2 MiB bucket's two) and
+    frontier (big) buckets and every fuzz_assemble pattern (spills past
+    2^15 and 2^16, reps before any dict, in runs and alone, literals
+    alone, tok 3, n_cmds outside 0..Tc, lex and raw-bit ranks past their
+    rows, column slices, Tc 1 to 40000, B = 1) at wide_delta false and
+    true; _lz_expand_rows on the buckets' pairs against
+    lz_expand_parallel_ref (ship and file at their hint and at 0 and 1)
+    and on fuzz_expand's four fault classes given as rows; the buckets
+    and five fuzz inputs timed (asm_timing: ms, device ms, ns a slot,
+    registers, shared bytes, CTAs an SM, waves), lz_expand's device ms
+    on the pairs against the same commands as [T, B] (rows_vs_cols),
+    and the main path's kernels on the shipping and file buckets under
+    torch.profiler: no lz_expand_transpose_kernel;
 20. e2e_enc_v1_opt: encode_container(parser="optimal", engine="device")
     of the 8 MiB at 8 KiB blocks, checked as 17; MB/s, the ratio and 17's
     greedy ratio;
@@ -301,6 +317,16 @@ PS_WIRE_LANES = (64, 64, 32, 16, 32)  # tok, lit, len, lex, dst
 PS_WIRE_ALPH = (4, 256, 8, 256, 64)
 PS_WH_SHIP = (72, 352, 64, 48, 88)  # window ints a chunk, the shipping bucket 0
 PS_CDF = 1 << 14  # the wide profile's CDF scale
+# csrc/assemble.cu's scheme (assemble_model): threads a CTA (ASM_NT_SMALL up
+# to ASM_SMALL slots), the most command slots a chunk holds (slots a
+# thread: the least power of two whose chunk holds the tok width, up to
+# ASM_CHMAX / threads), and the shared bytes up to which the raw-bit row is
+# staged
+ASM_NT = 896
+ASM_NT_SMALL = 512
+ASM_SMALL = 1024
+ASM_CHMAX = 16384
+ASM_SMEM_MAX = 224 * 1024
 
 
 def build_corpus(n: int) -> bytes:
@@ -2136,6 +2162,294 @@ def expand_model(op_len, op_val, N: int, rounds_hint=None, dict_arr=None, stats=
     return out, prod.astype(np.int32)
 
 
+def fuzz_assemble(seed: int, names=None, card: bool = False) -> dict:
+    """Inputs of assemble_ops drawn from a seed, for the worst cases of
+    csrc/assemble.cu and JAX's packed compaction: (tok, len, lex, lit, slot
+    [B, width] int32, bit_half [B, H] uint16, n_cmds [B] int32) a pattern,
+    planes as numpy arrays (a column slice is a view of a wider array).
+    The draw: B = 3, Tc = 256, tok 0..2, len 0..6, lex 0..7, lit 0..255,
+    slot 0..7, every plane Tc wide, 300 random halfwords of raw bits,
+    n_cmds = Tc:
+    - "spill_30", "spill_32", "spill_33": each block's 6th dict (slot index
+      5) at slot 30, 32, 33 (a distance past 2^15; 32 and 33 also past
+      2^16); "spill_many": block 0 128 dicts at slots 30..33, then reps,
+      block 1 such dicts and reps alternating, block 2 the draw with one;
+    - "valid": the draw with len 0..7 (escapes); "rep_first": eight reps
+      before the first dict (the virtual history 1..4); "rep_runs": runs
+      of 6 reps every 16 slots; "only_reps": block 0 reps only;
+      "only_lits": block 1 literals only; "tok3": tok 0..3;
+    - "ncmd_low", "ncmd_high": n_cmds 0, -5, Tc // 2 and Tc, Tc + 100, 7;
+    - "lex_past": len 7 a third of the matches, the lex plane 16 wide;
+      "bits_past": the raw bits 8 halfwords wide; "col_slice": every plane
+      a column slice (stride 320) of a wider array;
+    - "tc1", "tc31" (B = 3), "tc1025" (B = 2), "tc4096_b1" (B = 1; len,
+      lit and slot 2048 wide, lex 512): the draw at those widths.
+    card=True adds shapes past the CPU tests' 64 KiB: "spill_tc32768" (B =
+    2, Tc = 32768, the widest packed plane: two chunks, a spill in the
+    second and reps in the first) and "big_tc40000" (B = 2, Tc = 40000:
+    three chunks; for big=True only). names: the patterns to return
+    (default all)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def draw(B=3, Tc=256, max_len=6, tok_max=2, widths=None, H=300):
+        w = {**dict(len=Tc, lex=Tc, lit=Tc, slot=Tc), **(widths or {})}
+        tok = rng.integers(0, tok_max + 1, (B, Tc))
+        len_ = rng.integers(0, max_len + 1, (B, w["len"]))
+        lex = rng.integers(0, 8, (B, w["lex"]))
+        lit = rng.integers(0, 256, (B, w["lit"]))
+        slot = rng.integers(0, 8, (B, w["slot"]))
+        bits = rng.integers(0, 1 << 16, (B, H))
+        return [tok, len_, lex, lit, slot, bits, np.full(B, Tc)]
+
+    def done(p):
+        planes = [np.asarray(a).astype(np.int32) for a in p[:5]]
+        return (*planes, np.asarray(p[5]).astype(np.uint16), np.asarray(p[6]).astype(np.int32))
+
+    def spill(S):
+        p = draw()
+        p[4][:, 5] = S
+        return done(p)
+
+    def spill_many():
+        p = draw()
+        tok, slot = p[0], p[4]
+        tok[0, :128], tok[0, 128:] = 1, 2
+        slot[0, :128] = rng.integers(30, 34, 128)
+        tok[1, 0::2], tok[1, 1::2] = 1, 2
+        slot[1, :128] = rng.integers(30, 34, 128)
+        slot[2, 9] = 33
+        return done(p)
+
+    def change(fn, **kw):
+        p = draw(**kw)
+        fn(p)
+        return done(p)
+
+    def rep_first(p):
+        p[0][:, :8] = 2
+
+    def rep_runs(p):
+        for s in range(0, p[0].shape[1], 16):
+            p[0][:, s : s + 6] = 2
+
+    def lex_past(p):
+        p[1][rng.random(p[1].shape) < 1 / 3] = 7
+
+    def col_slice():
+        p = draw()
+        for i in range(5):
+            wide = np.zeros((3, 320), np.int32)
+            wide[:, :256] = p[i]
+            wide[:, 256:] = rng.integers(0, 8, (3, 64))
+            p[i] = wide[:, :256]
+        tok, len_, lex, lit, slot = p[:5]
+        return (tok, len_, lex, lit, slot, p[5].astype(np.uint16), p[6].astype(np.int32))
+
+    def card_spill():
+        p = draw(B=2, Tc=32768, widths=dict(lex=4096), H=20000)
+        tok, slot = p[0], p[4]
+        tok[:, :8] = 2  # reps of the first chunk, before any dict
+        slot[:, (tok[0] == 1).sum() * 3 // 4] = 32  # a dict of the second chunk
+        return done(p)
+
+    pats = {
+        **{f"spill_{s}": (lambda s=s: spill(s)) for s in (30, 32, 33)},
+        "spill_many": spill_many,
+        "valid": lambda: done(draw(max_len=7)),
+        "rep_first": lambda: change(rep_first),
+        "rep_runs": lambda: change(rep_runs),
+        "only_reps": lambda: change(lambda p: p[0].__setitem__(0, 2)),
+        "only_lits": lambda: change(lambda p: p[0].__setitem__(1, 0)),
+        "tok3": lambda: done(draw(tok_max=3)),
+        "ncmd_low": lambda: change(lambda p: p.__setitem__(6, np.array([0, -5, 128]))),
+        "ncmd_high": lambda: change(lambda p: p.__setitem__(6, np.array([256, 356, 7]))),
+        "lex_past": lambda: change(lex_past, max_len=7, widths=dict(lex=16)),
+        "bits_past": lambda: done(draw(H=8)),
+        "col_slice": col_slice,
+        "tc1": lambda: done(draw(Tc=1, H=4)),
+        "tc31": lambda: done(draw(Tc=31, H=40)),
+        "tc1025": lambda: done(draw(B=2, Tc=1025, max_len=7, H=1200)),
+        "tc4096_b1": lambda: done(draw(B=1, Tc=4096, max_len=7, H=4096,
+                                       widths=dict(len=2048, lit=2048, slot=2048, lex=512))),
+    }
+    if card:
+        pats["spill_tc32768"] = card_spill
+        pats["big_tc40000"] = lambda: done(draw(B=2, Tc=40000, max_len=7, H=40000,
+                                                widths=dict(lex=8192)))
+    return {k: pats[k]() for k in (names or pats)}
+
+
+def asm_config(Tc: int) -> tuple:
+    """csrc/assemble.cu's (threads, slots a thread) for a tok width Tc
+    (config_of)."""
+    nt = ASM_NT_SMALL if Tc <= ASM_SMALL else ASM_NT
+    spt = 1
+    while spt * nt < Tc and 2 * spt * nt <= ASM_CHMAX:
+        spt <<= 1
+    return nt, spt
+
+
+def assemble_model(tok, len_, lex, lit, slot, bit_half, n_cmds, big=False, wide_delta=True,
+                   NT=None, SPT=None, stats=None):
+    """numpy model of csrc/assemble.cu -> cmds [B, TP, 2] int32 (op_len,
+    op_val pairs, TP = Tc rounded up to even, the padding slot -1, 0):
+    chunks of NT x SPT slots (both as the kernel picks them unless given), a
+    run of SPT consecutive slots a thread; scan 1 of each run's match,
+    dict and literal counts and scan 2 of its escapes and raw-bit widths
+    (exclusive sums in thread order, carried from chunk to chunk); the
+    clamped gathers at those ranks; the chunk's dict distances by rank
+    (DR), each rep's from DR or, before the chunk's first dicts, from the
+    4-entry window carried from chunk to chunk (the virtual history 1..4
+    at a block's start); on JAX's packed path (big false) a block with a
+    dict distance outside the payload (2^15, 2^16 with wide_delta)
+    resolves its reps again from flagged_block's sort of u32 keys merged
+    with the Tc - n_dict fillers. stats, when given, gets per block
+    "flagged" and "chunks"."""
+    import numpy as np
+
+    B, Tc = tok.shape
+    TP = (Tc + 1) & ~1
+    hb = bit_half.shape[1]
+    if NT is None:
+        NT, SPT = asm_config(Tc)
+    CH = NT * SPT
+    pb = 0 if big else (16 if wide_delta else 15)
+    bits = bit_half.astype(np.int64) & 0xFFFF
+    out = np.zeros((B, TP, 2), np.int64)
+    out[:, :, 0] = -1
+    wrap = lambda x: ((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+    mmin = lambda d: 2 + (d > 0xFF) + (d > 0xFFF) + (d > 0xFFFFF)
+    st = {"flagged": [], "chunks": []}
+
+    def at(a, b, k):
+        return int(a[b, min(max(k, 0), a.shape[1] - 1)])
+
+    def fetch(b, off, width):
+        if width <= 0:
+            return 0
+        h0 = off >> 4
+        word = (int(bits[b, min(max(h0, 0), hb - 1)]) << 16) | int(bits[b, min(max(h0 + 1, 0),
+                                                                                    hb - 1)])
+        return ((word << (off & 15)) & 0xFFFFFFFF) >> (32 - min(width, 16))
+
+    def ab_of(s):
+        return min(max((s >> 1) - 1, 0), 16) if s >= 4 else 0
+
+    def dict_delta(s, v):
+        ab = ab_of(s)
+        return (((2 + (s & 1)) << ab) + v if s >= 4 else s) + 1
+
+    for b in range(B):
+        nc = int(n_cmds[b])
+        base = [0, 0, 0, 0, 0]  # match, dict, literal ranks; lex rank, bit offset
+        carry = [1, 2, 3, 4]  # distances of dict ranks cb - 1 - q, the virtual history first
+        flagged = False
+        walk = []  # every slot's (kind, lv, d_rank, v) for flagged_block
+        for c0 in range(0, Tc, CH):
+            kind = np.zeros(CH, np.int64)  # 0 none, 1 literal, 2 dict, 3 rep
+            g = c0 + np.arange(CH)
+            t_ = np.where(g < Tc, tok[b, np.minimum(g, Tc - 1)], -1)
+            live = (g < Tc) & (g < nc)
+            kind[live & (t_ == 0)], kind[live & (t_ == 1)], kind[live & (t_ == 2)] = 1, 2, 3
+            runs = kind.reshape(NT, SPT)
+            cnt = np.stack([(runs >= 2).sum(1), (runs == 2).sum(1), (runs == 1).sum(1)], 1)
+            ex = np.cumsum(cnt, 0) - cnt + np.array(base[:3])
+            base[:3] = [base[i] + int(cnt[:, i].sum()) for i in range(3)]
+            X = np.zeros(CH, np.int64)
+            Y = np.zeros(CH, np.int64)
+            f2 = np.zeros((NT, 2), np.int64)
+            for t in range(NT):
+                mr, dr, lr = (int(x) for x in ex[t])
+                for i in range(SPT):
+                    k, kd = t * SPT + i, runs[t, i]
+                    if kd == 1:
+                        X[k], Y[k] = 0, at(lit, b, lr)
+                        lr += 1
+                    elif kd == 0:
+                        X[k] = 0 if live[k] else -1
+                    else:
+                        X[k] = at(len_, b, mr)
+                        mr += 1
+                        if kd == 2:
+                            Y[k] = at(slot, b, dr)
+                            dr += 1
+                        f2[t] += (X[k] == 7, 2 if kd == 3 else ab_of(int(Y[k])))
+            ex2 = np.cumsum(f2, 0) - f2 + np.array(base[3:])
+            base[3:] = [base[3 + i] + int(f2[:, i].sum()) for i in range(2)]
+            cb = int(ex[0, 1])  # the chunk's first dict rank
+            DR = {}
+            for t in range(NT):
+                er, off = (int(x) for x in ex2[t])
+                dr = int(ex[t, 1])
+                for i in range(SPT):
+                    k, kd = t * SPT + i, runs[t, i]
+                    if kd < 2:
+                        walk.append((kd, 0, 0, 0))
+                        continue
+                    ls = int(X[k])
+                    lv = ls
+                    if ls == 7:
+                        lv = 7 + at(lex, b, er)
+                        er += 1
+                    if kd == 2:
+                        ab = ab_of(int(Y[k]))
+                        delta = dict_delta(int(Y[k]), fetch(b, off, ab))
+                        off += ab
+                        flagged |= pb > 0 and not 0 <= delta < 1 << pb
+                        X[k], Y[k] = lv + mmin(delta), delta
+                        DR[dr - cb] = delta
+                        walk.append((kd, lv, dr, 0))
+                        dr += 1
+                    else:
+                        v = fetch(b, off, 2)
+                        off += 2
+                        X[k], Y[k] = lv, v
+                        walk.append((kd, lv, dr, v))
+            for t in range(NT):
+                dr = int(ex[t, 1]) - cb
+                for i in range(SPT):
+                    k, kd = t * SPT + i, runs[t, i]
+                    if kd == 3:
+                        j = dr - 1 - int(Y[k])
+                        d = DR[j] if j >= 0 else carry[-1 - j]
+                        X[k], Y[k] = X[k] + mmin(d), d
+                    dr += kd == 2
+            nd = len(DR)
+            carry = [DR[nd - 1 - q] if nd > q else carry[q - nd] for q in range(4)]
+            n = min(CH, TP - c0)
+            out[b, c0 : c0 + n, 0] = X[:n]
+            out[b, c0 : c0 + n, 1] = Y[:n]
+        walk = walk[:Tc]
+        if flagged:
+            flip = 0x80000000 if pb == 15 else 0
+            keys = [(((d_rank << pb) | (dl & 0xFFFFFFFF)) & 0xFFFFFFFF) ^ flip
+                    for k, (kd, _, d_rank, _) in enumerate(walk) if kd == 2
+                    for dl in [int(out[b, k, 1])]]
+            S = np.sort(np.array(keys, np.int64))
+            nd, fill, mask = len(keys), ((1 << (15 + pb)) ^ flip), (1 << pb) - 1
+            n_lo = int((S < fill).sum())
+
+            def D(i):
+                if i < n_lo:
+                    return int(S[i]) & mask
+                if i < n_lo + Tc - nd:
+                    return 0
+                return int(S[i - (Tc - nd)]) & mask
+
+            for k, (kd, lv, d_rank, v) in enumerate(walk):
+                if kd == 3:
+                    j = d_rank - 1 - v
+                    d = D(j) if j >= 0 else -j
+                    out[b, k] = (lv + mmin(d), d)
+        st["flagged"].append(bool(flagged))
+        st["chunks"].append(-(-Tc // CH))
+    if stats is not None:
+        stats.update(st)
+    return wrap(out).astype(np.int32)
+
+
 def ps_quot(n, d):
     """csrc/plane_scan.cu's quot: floor(n / d) for 0 <= n < 2^31 and d >= 1,
     as the multiply-high of n by floor((2^32 - 1) / d) and one correction
@@ -2465,13 +2779,15 @@ def check_kernels(tally: Tally, buckets, block_size: int):
             ys = tuple(a[:, : min(a.shape[1], wd.CAP15)] for a in ys)
         tok_y, lit_y, len_y, lex_y, slot_y = ys
         asm = (tok_y, len_y, lex_y, lit_y, slot_y, staged["bit_half"],
-               staged["n_sym"][:, 0].contiguous())
+               staged["n_sym"][:, 0].contiguous(), block_size > wd.CAP15,
+               staged["dict_arr"] is not None)
         Tc = tok_y.shape[1]
-        op_len, op_val = tally.hold(
-            "assemble", lambda: wd.assemble_ops(*asm), lambda: wd.assemble_ops_ref(*asm),
-            work=(nbytes(*asm) + 8 * Tc * B, 40 * Tc * B))
+        # the main path's entries: commands as [B, TP] pairs, no transpose
+        cmds = tally.hold("assemble", lambda: wd._assemble_rows(*asm),
+                          lambda: wd._rows_of(*wd.assemble_ops_ref(*asm)), work=asm_work(asm))
+        op_len, op_val = (cmds[:, :Tc, i].t().contiguous() for i in (0, 1))
         ex = (op_len, op_val, block_size, staged["rounds_hint"], staged["dict_arr"])
-        tally.hold("lz_expand", lambda: xo.lz_expand_parallel(*ex),
+        tally.hold("lz_expand", lambda: xo._lz_expand_rows(cmds, Tc, *ex[2:]),
                    lambda: xo.lz_expand_parallel_ref(*ex),
                    work=expand_work(op_len, block_size, staged["rounds_hint"], staged["dict_arr"]))
         hold_low_hints(tally, op_len, op_val, block_size, staged["dict_arr"])
@@ -2505,7 +2821,7 @@ def check_frontier_hints(tally: Tally, container: bytes, device) -> dict:
             timed=False)
         timing[f"frontier_b{i}"] = ps_timing(ps)
         op_len, op_val = wd.assemble_ops(tok_y, len_y, lex_y, lit_y, slot_y, staged["bit_half"],
-                                         staged["n_sym"][:, 0].contiguous())
+                                         staged["n_sym"][:, 0].contiguous(), True)
         hold_low_hints(tally, op_len, op_val, info.block_size, staged["dict_arr"])
     return timing
 
@@ -3712,7 +4028,10 @@ def file_buckets(container: bytes, device):
 
 def wide_device_ms(block_size: int, buckets, tag: str) -> dict:
     """Each wide decode kernel's device ms a launch (kernel_device_ms) on
-    each staged bucket, as decode_wide_staged runs it: {tag_i: {kernel:
+    each staged bucket, as decode_wide_staged runs it (assemble and
+    lz_expand through the main path's entries, the commands as [B, TP]
+    pairs), and lz_expand_cols: lz_expand_parallel on the same commands as
+    [T, B] (its transpose kernel and the expansion): {tag_i: {kernel:
     ms}}."""
     from nlzm_tpu_torch.ops import expand_ops as xo
     from nlzm_tpu_torch.ops import wide_decode as wd
@@ -3725,14 +4044,20 @@ def wide_device_ms(block_size: int, buckets, tag: str) -> dict:
         ys = tuple(a[:, : min(a.shape[1], wd.CAP15)] for a in wd._plane_scan_fused(*ps))
         tok_y, lit_y, len_y, lex_y, slot_y = ys
         asm = (tok_y, len_y, lex_y, lit_y, slot_y, staged["bit_half"],
-               staged["n_sym"][:, 0].contiguous())
-        ex = (*wd.assemble_ops(*asm), block_size, staged["rounds_hint"], staged["dict_arr"])
+               staged["n_sym"][:, 0].contiguous(), block_size > wd.CAP15,
+               staged["dict_arr"] is not None)
+        cmds = wd._assemble_rows(*asm)
+        Tc = tok_y.shape[1]
+        ex = (block_size, staged["rounds_hint"], staged["dict_arr"])
+        cols = (cmds[:, :Tc, 0].t().contiguous(), cmds[:, :Tc, 1].t().contiguous(), *ex)
         calls = {"stage_windows": lambda: wd.stage_windows_fused(*sw),
                  "plane_scan": lambda: wd._plane_scan_fused(*ps, staged["slot_priors"]),
-                 "assemble": lambda: wd.assemble_ops(*asm),
-                 "lz_expand": lambda: xo.lz_expand_parallel(*ex)}
+                 "assemble": lambda: wd._assemble_rows(*asm),
+                 "lz_expand": lambda: xo._lz_expand_rows(cmds, Tc, *ex)}
         out[f"{tag}_{i}"] = {"blocks": staged["seeds_cat"].shape[0],
-                             **{n: kernel_device_ms(f, n) for n, f in calls.items()}}
+                             **{n: kernel_device_ms(f, n) for n, f in calls.items()},
+                             "lz_expand_cols": kernel_device_ms(
+                                 lambda: xo.lz_expand_parallel(*cols), "lz_expand")}
     return out
 
 
@@ -3782,27 +4107,21 @@ def check_scan(tally: Tally, container: bytes, device, timing: dict) -> dict:
 
 def wide_commands(staged, block_size: int):
     """(op_len, op_val) of a staged wide bucket through the kernels, as
-    decode_wide_staged makes them."""
+    decode_wide_staged makes them (here as [T, B])."""
     from nlzm_tpu_torch.ops import wide_decode as wd
 
-    ys = wd._plane_scan_fused(staged["seeds_cat"], wd.stage_windows_of(staged), staged["n_sym"],
-                              staged["steps"], staged["priors"], staged["slot_priors"])
-    if block_size <= wd.CAP15:
-        ys = tuple(a[:, : min(a.shape[1], wd.CAP15)] for a in ys)
-    tok_y, lit_y, len_y, lex_y, slot_y = ys
-    return wd.assemble_ops(tok_y, len_y, lex_y, lit_y, slot_y, staged["bit_half"],
-                           staged["n_sym"][:, 0].contiguous())
+    return wd.assemble_ops(*asm_args(staged, block_size))
 
 
-def ex_shape(T: int, B: int, N: int, D: int) -> dict:
+def ex_shape(T: int, B: int, N: int, D: int, rows: bool = False) -> dict:
     """csrc/lz_expand.cu's launch at this shape on this card
     (nlzm_lz_expand_shape): threads a CTA, dynamic shared bytes, registers
     a thread (cudaFuncGetAttributes), resident CTAs an SM
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor), the waves of its B
     CTAs, whether it takes JAX's packed path, whether the masks are in
-    shared memory and whether the commands are transposed first; the
-    scratch bytes, the wrapper's size checked against the C layout's
-    (nlzm_lz_expand_scratch)."""
+    shared memory and whether the commands are transposed first (never
+    with rows: the main path's pairs); the scratch bytes, the wrapper's
+    size checked against the C layout's (nlzm_lz_expand_scratch)."""
     import ctypes
 
     import torch
@@ -3812,15 +4131,16 @@ def ex_shape(T: int, B: int, N: int, D: int) -> dict:
 
     dev = torch.cuda.current_device()
     out = (ctypes.c_int * 9)()
-    st = _build.entry("lz_expand", "nlzm_lz_expand_shape", 1, 4)(
-        ctypes.addressof(out), T, B, N, D, dev, None)
+    st = _build.entry("lz_expand", "nlzm_lz_expand_shape", 1, 5)(
+        ctypes.addressof(out), T, B, N, D, int(rows), dev, None)
     words = ctypes.c_longlong()
-    st = st or _build.entry("lz_expand", "nlzm_lz_expand_scratch", 1, 4)(
-        ctypes.addressof(words), T, B, N, D, dev, None)
+    st = st or _build.entry("lz_expand", "nlzm_lz_expand_scratch", 1, 5)(
+        ctypes.addressof(words), T, B, N, D, int(rows), dev, None)
     if st:
         raise RuntimeError(f"nlzm_lz_expand_shape: CUDA error {st}")
-    if words.value != xo.scratch_words(T, B, N, D):
-        raise AssertionError(f"scratch words {xo.scratch_words(T, B, N, D)} != {words.value}")
+    want = xo.scratch_words(T, B, N, D, rows)
+    if words.value != want:
+        raise AssertionError(f"scratch words {want} != {words.value}")
     threads, smem, regs, ctas, sms, packed, in_smem, transposed, slot = out
     return dict(threads=threads, smem_bytes=smem, registers=regs, ctas_per_sm=ctas,
                 waves=-(-B // (ctas * sms)) if ctas else None, packed_path=bool(packed),
@@ -3944,6 +4264,227 @@ def check_expand(tally: Tally, wide_c: bytes, v1_c: bytes, big_c: bytes, fcont: 
         if timed:
             timing[label] = ex_timing(ex)
     return {"ex_timing": timing, "holds_seconds": hold_s, "seconds": time.perf_counter() - t0}
+
+
+def asm_args(staged, block_size: int):
+    """assemble's arguments on a staged wide bucket, as decode_wide_staged
+    makes them: the planes through the kernels (cut to 2^15 columns on the
+    packed path), raw bits, symbol counts, big, wide_delta."""
+    from nlzm_tpu_torch.ops import wide_decode as wd
+
+    ys = wd._plane_scan_fused(staged["seeds_cat"], wd.stage_windows_of(staged), staged["n_sym"],
+                              staged["steps"], staged["priors"], staged["slot_priors"])
+    big = block_size > wd.CAP15
+    if not big:
+        ys = tuple(a[:, : min(a.shape[1], wd.CAP15)] for a in ys)
+    tok_y, lit_y, len_y, lex_y, slot_y = ys
+    return (tok_y, len_y, lex_y, lit_y, slot_y, staged["bit_half"],
+            staged["n_sym"][:, 0].contiguous(), big, staged["dict_arr"] is not None)
+
+
+def asm_work(asm):
+    """assemble's (bytes, ops) on this input's data: what a block needs
+    read once and its [B, TP] pairs written. Read: tok over the block's
+    live slots, len to its matches, lit to its literals, slot to its dicts
+    and lex to its escapes (each at most the plane's width, the rest of a
+    plane is padding), the raw-bit halfwords that hold its fields (at most
+    hb), and its count; ~40 operations a slot."""
+    import torch
+
+    tok, len_, lex, lit, slot, bits, n_cmds = asm[:7]
+    B, Tc = tok.shape
+    head = lambda a, n: torch.arange(a.shape[1], device=a.device) < n[:, None]
+    live = head(tok, n_cmds.long())
+    n_lit, n_dict, n_rep = (((tok == v) & live).sum(1) for v in (0, 1, 2))
+    n_match = n_dict + n_rep
+    n_esc = ((len_ == 7) & head(len_, n_match)).sum(1)
+    ab = torch.where(slot >= 4, ((slot >> 1) - 1).clamp(0, 16), 0)
+    n_bits = (ab * head(slot, n_dict)).sum(1) + 2 * n_rep
+    words = sum(int(n.clamp(max=a.shape[1]).sum())
+                for a, n in ((len_, n_match), (lit, n_lit), (slot, n_dict), (lex, n_esc)))
+    halves = int(((n_bits + 15) // 16).clamp(max=bits.shape[1]).sum())
+    read = 4 * (int(live.sum()) + words + B) + 2 * halves
+    return read + 8 * ((Tc + 1) & ~1) * B, 40 * Tc * B
+
+
+def asm_shape(Tc: int, hb: int, B: int) -> dict:
+    """csrc/assemble.cu's launch at this shape on this card
+    (nlzm_assemble_shape): threads a CTA, slots a thread, dynamic shared
+    bytes, registers a thread (cudaFuncGetAttributes), resident CTAs an SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), the waves of its B
+    CTAs, whether the raw-bit row sits in shared memory, chunks a block."""
+    import ctypes
+
+    import torch
+
+    from nlzm_tpu_torch import _build
+
+    out = (ctypes.c_int * 8)()
+    st = _build.entry("assemble", "nlzm_assemble_shape", 1, 2)(
+        ctypes.addressof(out), Tc, hb, torch.cuda.current_device(), None)
+    if st:
+        raise RuntimeError(f"nlzm_assemble_shape: CUDA error {st}")
+    threads, spt, smem, regs, ctas, sms, in_smem, chunks = out
+    return dict(threads=threads, slots_per_thread=spt, smem_bytes=smem, registers=regs,
+                ctas_per_sm=ctas, waves=-(-B // (ctas * sms)) if ctas else None,
+                bits_in_smem=bool(in_smem), chunks=chunks)
+
+
+def asm_timing(asm) -> dict:
+    """_assemble_rows on these arguments: CUDA-event mean of KERNEL_REPS
+    back-to-back calls (ms), its device time (device_ms, kernel_device_ms),
+    ns a slot from each, the bound (asm_work) and the launch shape
+    (asm_shape)."""
+    from nlzm_tpu_torch.ops import wide_decode as wd
+
+    call = lambda: wd._assemble_rows(*asm)
+    call()
+    ms = timed_mean(call, KERNEL_REPS)
+    dev_ms = kernel_device_ms(call, "assemble")
+    B, Tc = asm[0].shape
+    slots = max(B * Tc, 1)
+    b_ms, b_by = bound(*asm_work(asm))
+    return dict(blocks=B, Tc=Tc, big=asm[7], wide_delta=asm[8], ms=ms, device_ms=dev_ms,
+                ns_per_slot=ms * 1e6 / slots,
+                device_ns_per_slot=None if dev_ms is None else dev_ms * 1e6 / slots,
+                bound_ms=b_ms, bound_by=b_by, **asm_shape(Tc, asm[5].shape[1], B))
+
+
+def put_strided(a, device):
+    """A numpy plane on `device` with its row stride: a column slice of a
+    wider array stays a column slice."""
+    import numpy as np
+    import torch
+
+    row = a.strides[0] // a.itemsize
+    if row == a.shape[1]:
+        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+    full = np.lib.stride_tricks.as_strided(a, (a.shape[0], row), a.strides)
+    return torch.as_tensor(np.array(full), device=device)[:, : a.shape[1]]
+
+
+ASM_TIMED_FUZZ = ("valid", "only_reps", "tc4096_b1", "spill_tc32768", "big_tc40000")
+
+
+def asm_inputs(ship_c: bytes, front_c: bytes, device, seed: int = 7):
+    """(label, assemble arguments on `device`, expansion arguments (block
+    size, hint, dictionary) or None, timed) of the shapes the kernel is held
+    at: the shipping buckets, the two quantile buckets of one 2 MiB file
+    bucket (file_buckets), the frontier buckets (big) and every
+    fuzz_assemble(seed, card=True) pattern at wide_delta false and true
+    (big_tc40000 at big); ASM_TIMED_FUZZ timed at wide_delta true."""
+    import numpy as np
+    import torch
+
+    for tag, make in (("ship", lambda: stage(ship_c, device)),
+                      ("file", lambda: file_buckets(ship_c, device)),
+                      ("frontier", lambda: stage(front_c, device))):
+        bs, buckets = make()
+        bs = getattr(bs, "block_size", bs)
+        for i, (staged, _) in enumerate(buckets):
+            yield (f"{tag}_b{i}", asm_args(staged, bs),
+                   (bs, staged["rounds_hint"], staged["dict_arr"]), True)
+        del buckets
+    for pat, a in fuzz_assemble(seed, card=True).items():
+        planes = tuple(put_strided(x, device) for x in a[:5])
+        rest = (torch.as_tensor(a[5].view(np.int16), device=device),
+                torch.as_tensor(a[6], device=device))
+        for wide_delta in (False, True):
+            big = pat.startswith("big")
+            yield (f"{pat}_w{int(wide_delta)}", (*planes, *rest, big, wide_delta), None,
+                   wide_delta and pat in ASM_TIMED_FUZZ)
+
+
+def main_path_kernels(block_size: int, buckets) -> dict:
+    """{kernel: launches} of one decode_wide_staged over each bucket under
+    torch.profiler: the first of up to 5 profiles that traced
+    assemble_kernel and lz_expand_kernel once a bucket each; raises when
+    none did, so a lost trace never reads as a main path without a
+    transpose."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from nlzm_tpu_torch.ops import wide_decode as wd
+
+    run = lambda: [wd.decode_wide_staged(staged, block_size) for staged, _ in buckets]
+    run()
+    torch.cuda.synchronize()
+    want = {"assemble_kernel": len(buckets), "lz_expand_kernel": len(buckets)}
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        names = {e.key: e.count for e in prof.key_averages() if e.count}
+        seen = {k: sum(c for n, c in names.items() if k in n) for k in want}
+        if seen == want:
+            return names
+    raise AssertionError(f"no profile of the main path traced {want} (last: {seen})")
+
+
+def check_assemble(tally: Tally, ship_c: bytes, front_c: bytes, device) -> dict:
+    """Phase kernels_assemble: _assemble_rows and assemble_ops against their
+    plain versions, exact, untimed in the tally, at every asm_inputs shape;
+    on the shipping, file and frontier buckets _lz_expand_rows on those
+    pairs against lz_expand_parallel_ref on them as [T, B] (ship and file
+    at the bucket's hint and at 0 and 1), and both entries' device ms
+    (rows_vs_cols); _lz_expand_rows on fuzz_expand's four fault classes
+    (both shapes) given as rows, at no hint and 1; the main path's kernels
+    under torch.profiler on the shipping and file buckets
+    (main_path_kernels): a trace that holds assemble_kernel and
+    lz_expand_kernel once a bucket and no lz_expand_transpose_kernel.
+    Returns the phase's fields."""
+    import numpy as np
+    import torch
+
+    from nlzm_tpu_torch.ops import expand_ops as xo
+    from nlzm_tpu_torch.ops import wide_decode as wd
+
+    t0 = time.perf_counter()
+    timing, rows_vs_cols = {}, {}
+    for label, asm, ex, timed in asm_inputs(ship_c, front_c, device):
+        cmds = tally.hold("assemble", lambda: wd._assemble_rows(*asm),
+                          lambda: wd._rows_of(*wd.assemble_ops_ref(*asm)), timed=False)
+        tally.hold("assemble", lambda: wd.assemble_ops(*asm), lambda: wd.assemble_ops_ref(*asm),
+                   timed=False)
+        if timed:
+            timing[label] = asm_timing(asm)
+        if ex is None:
+            continue
+        N, hint, dict_arr = ex
+        B, Tc = asm[0].shape
+        cols = (cmds[:, :Tc, 0].t().contiguous(), cmds[:, :Tc, 1].t().contiguous())
+        hints = (hint,) if label.startswith("frontier") else tuple(dict.fromkeys((hint, 0, 1)))
+        for h in hints:
+            tally.hold("lz_expand", lambda: xo._lz_expand_rows(cmds, Tc, N, h, dict_arr),
+                       lambda: xo.lz_expand_parallel_ref(*cols, N, h, dict_arr), timed=False)
+        D = 0 if dict_arr is None else dict_arr.numel()
+        rows_vs_cols[label] = {
+            "rows_device_ms": kernel_device_ms(
+                lambda: xo._lz_expand_rows(cmds, Tc, N, hint, dict_arr), "lz_expand"),
+            "cols_device_ms": kernel_device_ms(
+                lambda: xo.lz_expand_parallel(*cols, N, hint, dict_arr), "lz_expand"),
+            "rows_shape": ex_shape(Tc, B, N, D, rows=True)}
+        del cmds, cols, asm
+    put = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
+    faults = [f"{c}_{s}" for c in ("delta_big", "delta_neg", "lit_big", "past_end")
+              for s in ("4k", "ship")]
+    for pat, (ol, ov, N, d) in fuzz_expand(7, faults).items():
+        dd = None if d is None else put(d)
+        rows = wd._rows_of(put(ol), put(ov))
+        for h in (None, 1):
+            tally.hold("lz_expand", lambda: xo._lz_expand_rows(rows, ol.shape[0], N, h, dd),
+                       lambda: xo.lz_expand_parallel_ref(put(ol), put(ov), N, h, dd),
+                       timed=False)
+    kernels = {}
+    for tag, make in (("ship", lambda: stage(ship_c, device)),
+                      ("file", lambda: file_buckets(ship_c, device))):
+        bs, buckets = make()
+        kernels[tag] = main_path_kernels(getattr(bs, "block_size", bs), buckets)
+        del buckets
+    if any("transpose" in n for k in kernels.values() for n in k):
+        raise AssertionError(f"the main path transposes its commands: {kernels}")
+    return {"asm_timing": timing, "rows_vs_cols": rows_vs_cols, "main_path_kernels": kernels,
+            "seconds": time.perf_counter() - t0}
 
 
 def check_fm(tally: Tally, corpus: bytes, device) -> dict:
@@ -4689,6 +5230,11 @@ def main() -> int:
                     f"torch.profiler (both kernels of a call); host_us the host's time to issue "
                     f"a call; registers, CTAs an SM and waves from the CUDA runtime",
           "card": card})
+    asm = check_assemble(tally, wide_c, front_c, "cuda")
+    emit({"phase": "kernels_assemble", "ok": True, **asm,
+          "timing": f"CUDA events, mean of {KERNEL_REPS} back-to-back calls of the main path's "
+                    f"entry (_assemble_rows); device_ms from torch.profiler; registers, CTAs an "
+                    f"SM and waves from the CUDA runtime", "card": card})
     plane_launches, plane_shape = check_plane_decode(tally, wide_c, "cuda")
     emit({"phase": "kernels_plane_decode", "ok": True, **plane_shape,
           "kernels": tally.summary(("plane_decode",)), "launches": plane_launches,

@@ -52,7 +52,8 @@ def build_other(src_dir: Path, source: str = "greedy_cover", entries=ENTRIES, de
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * (n_int + 1) + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns[sym] = fn
-    return fns, [ln for ln in r.stdout.splitlines() + r.stderr.splitlines() if "registers" in ln]
+    return fns, [ln for ln in r.stdout.splitlines() + r.stderr.splitlines()
+                 if "registers" in ln or "spill" in ln]
 
 
 @contextmanager

@@ -14,7 +14,9 @@
 // - lz_expand_transpose_kernel copies the [T, B] commands into [B, TP]
 //   (op_len, op_val) pairs when there are more than DIRECT_B blocks or one
 //   tile of slots: a block's commands, strided by B, would cost its CTA a
-//   32-byte sector a value.
+//   32-byte sector a value. The rows entry (nlzm_lz_expand_rows) takes
+//   such pairs from the caller (csrc/assemble.cu writes them) and reads
+//   them in place, with no transpose.
 // - Commands: each thread loads CPT consecutive slots at once (a tile of
 //   NT x CPT), one block scan of their lengths (int64: a start past 2^31
 //   is never taken for one in the block) gives each its start, and the
@@ -295,20 +297,30 @@ __device__ void fill_keys(unsigned* a, int L, int pb, int kind, int N, int D, un
 // _byte_fill_dict): the merged sorts of source and query words in A (L
 // words), the parents u16 in cur / nxt, the sort tile in shared memory.
 __device__ void packed_block(const int* __restrict__ op_len, const int* __restrict__ op_val,
-                             int T, int B, int b, int N, const unsigned char* __restrict__ dict,
-                             int D, int rounds, int max_rounds, unsigned* A, int L,
+                             const int2* crow, int T, int B, int b, int N,
+                             const unsigned char* __restrict__ dict, int D, int rounds,
+                             int max_rounds, unsigned* A, int L,
                              Par<true> cur, Par<true> nxt, int NP, unsigned* tile, int TL,
                              unsigned char* __restrict__ orow, int* __restrict__ produced,
                              unsigned* su) {
   const int t = threadIdx.x;
   // each command's word from its int32 start (JAX's cumsum), a tile of NT
-  // commands a scan; word(k, start) -> the word at A[at(k)]
+  // commands a scan; word(k, start) -> the word at A[at(k)]. The commands
+  // from [T, B] op_len / op_val, or (rows entry: op_len null) from the
+  // caller's pairs crow, never from the slot A that the sorts write over
   auto commands = [&](auto&& put) {
     unsigned base = 0;
     for (int k0 = 0; k0 < T; k0 += NT) {
       const int k = k0 + t;
-      const int ol = k < T ? op_len[(long long)k * B + b] : -1;
-      const int ov = k < T ? op_val[(long long)k * B + b] : 0;
+      int ol = -1, ov = 0;
+      if (k < T && op_len) {
+        ol = op_len[(long long)k * B + b];
+        ov = op_val[(long long)k * B + b];
+      } else if (k < T) {
+        const int2 c = __ldcg(crow + k);
+        ol = c.x;
+        ov = c.y;
+      }
       unsigned tot;
       const unsigned ex = block_exclusive<unsigned>((unsigned)len_of(ol), 0u, Add(), su, &tot);
       if (k < T) put(k, ol, ov, (int)(base + ex));
@@ -383,10 +395,11 @@ __device__ __forceinline__ int mod_pos(int x, int d) {
   return r;
 }
 
-// cmds: [B, TP] (op_len, op_val) pairs from lz_expand_transpose_kernel,
-// or null to read op_len / op_val [T, B] as they are (one tile at most,
-// of a few blocks). PACKED: slots [B, L] u32, the packed emulation's
-// sorts, each block's first 2 TP words its commands (so neither pointer is
+// cmds: [B, TP] (op_len, op_val) pairs from lz_expand_transpose_kernel
+// or the caller's (rows entry: op_len / op_val null), or null to read
+// op_len / op_val [T, B] as they are (one tile at most, of a few blocks).
+// PACKED: slots [B, L] u32, the packed emulation's sorts, each block's
+// first 2 TP words its transposed commands (so neither pointer is
 // __restrict__, and the commands are loaded past L1: packed_block writes
 // over them); not PACKED: gpar [2, B, N] i32, glit [B, N] u8, gmask [B, 2
 // W] u32 when the masks do not fit shared memory.
@@ -508,7 +521,7 @@ __global__ void __launch_bounds__(NT, 1)
       const size_t room = mask_offset(W, D) + 8 * (size_t)W - 4 * (size_t)NP;
       int TL = 1;
       while (TL < STILE && (size_t)TL * 8 <= room) TL <<= 1;
-      packed_block(op_len, op_val, T, B, b, N, dict, D, rounds, max_rounds,
+      packed_block(op_len, op_val, crow, T, B, b, N, dict, D, rounds, max_rounds,
                    slots + (long long)b * L, L, cur, nxt, NP, (unsigned*)(nxt.p + NP), TL,
                    orow, produced, (unsigned*)s32);
       return;
@@ -646,14 +659,15 @@ struct Layout {
 
 // The launch's layout: scratch words (int32) and dynamic shared bytes.
 // The commands transposed ([B, TP] pairs, TP = T rounded up to even) past
-// DIRECT_B blocks. PACKED: a slot of L words a block (its transposed
-// commands, then the packed emulation's sorts), L the power of two at or
-// above max(D + T + N, 2 TP); else the transposed commands, two parent rows
-// and the literal bytes a block, and the masks past MASK_SMEM.
-Layout layout_of(int T, int B, int N, int D) {
+// DIRECT_B blocks, unless they come as pairs (rows). PACKED: a slot of L
+// words a block (its transposed commands, then the packed emulation's
+// sorts), L the power of two at or above max(D + T + N, 2 TP); else the
+// transposed commands, two parent rows and the literal bytes a block, and
+// the masks past MASK_SMEM.
+Layout layout_of(int T, int B, int N, int D, bool rows) {
   Layout y = {};
   y.packed = N <= 32768 && D + N <= 65536;  // nlzm_tpu's packed-sort path (ops/expand_ops.py:255)
-  y.transpose = T > 0 && (B > DIRECT_B || T > TILE);
+  y.transpose = !rows && T > 0 && (B > DIRECT_B || T > TILE);
   y.W = (N + 31) / 32;
   y.TP = y.transpose ? (T + 1) & ~1 : 0;
   const size_t mask_bytes = 8 * (size_t)y.W;
@@ -686,36 +700,17 @@ cudaError_t smem_setup(const void* fn, int slot, size_t bytes, int device) {
   return e;
 }
 
-}  // namespace
-
-// Scratch int32 words a call takes at this shape (the wrapper allocates
-// them): *out (host long long).
-NLZM_API int nlzm_lz_expand_scratch(void* out, int T, int B, int N, int D, int device,
-                                    void* stream) {
-  (void)device;
-  (void)stream;
-  *(long long*)out = layout_of(T, B, N, D).words;
-  return 0;
-}
-
-// op_len/op_val [T, B] i32; dict [D] u8 (null when D = 0); rounds < 0:
-// until no change, else min(rounds, max_rounds); scratch: int32 words as
-// nlzm_lz_expand_scratch; out [B, N] u8; produced [B] i32.
-NLZM_API int nlzm_lz_expand(const void* op_len, const void* op_val, const void* dict,
-                            void* scratch, void* out, void* produced, int T, int B, int N, int D,
-                            int rounds, int max_rounds, int device, void* stream) {
-  cudaSetDevice(device);
-  if (B == 0) return 0;
-  if (N < 1 || D < 0 || T < 0) return (int)cudaErrorInvalidValue;
-  const Layout y = layout_of(T, B, N, D);
-  const cudaStream_t s = (cudaStream_t)stream;
-  const int* ol = (const int*)op_len;
-  const int* ov = (const int*)op_val;
-  const unsigned char* dt = (const unsigned char*)dict;
-  int* sc = (int*)scratch;
-  // PACKED: block b's commands at the start of its slot (a row of L / 2 pairs)
-  const int TP = y.packed ? y.L / 2 : y.TP;
-  int2* cmds = y.transpose ? (int2*)sc : nullptr;
+// The launch of both entries: op_len / op_val [T, B] (transposed into the
+// scratch past DIRECT_B blocks or one tile) or, when rows is given, the
+// caller's [B, TP] pairs, read in place.
+int run(const int* ol, const int* ov, const int2* rows, int TP, const unsigned char* dt,
+        int* sc, unsigned char* out, int* produced, int T, int B, int N, int D, int rounds,
+        int max_rounds, int device, cudaStream_t s) {
+  const Layout y = layout_of(T, B, N, D, rows != nullptr);
+  int2* cmds = rows ? const_cast<int2*>(rows) : (y.transpose ? (int2*)sc : nullptr);
+  // PACKED and transposed: block b's commands at the start of its slot (a
+  // row of L / 2 pairs)
+  if (!rows) TP = y.packed ? y.L / 2 : y.TP;
   const void* fn = y.packed ? (const void*)lz_expand_kernel<true>
                             : (const void*)lz_expand_kernel<false>;
   const cudaError_t e = smem_setup(fn, y.packed ? 0 : 1, y.smem, device);
@@ -729,29 +724,68 @@ NLZM_API int nlzm_lz_expand(const void* op_len, const void* op_val, const void* 
   if (y.packed) {
     lz_expand_kernel<true><<<B, NT, y.smem, s>>>(ol, ov, cmds, T, TP, B, N, dt, D, rounds,
                                                  max_rounds, (unsigned*)sc, y.L, nullptr,
-                                                 nullptr, nullptr, 1, (unsigned char*)out,
-                                                 (int*)produced);
+                                                 nullptr, nullptr, 1, out, produced);
   } else {
     int* gpar = sc + 2LL * B * y.TP;
     unsigned char* glit = (unsigned char*)(gpar + 2LL * B * N);
     unsigned* gmask = (unsigned*)(gpar + 2LL * B * N + ((long long)B * N + 3) / 4);
     lz_expand_kernel<false><<<B, NT, y.smem, s>>>(ol, ov, cmds, T, TP, B, N, dt, D, rounds,
                                                   max_rounds, nullptr, 0, gpar, glit, gmask,
-                                                  y.masks_in_smem, (unsigned char*)out,
-                                                  (int*)produced);
+                                                  y.masks_in_smem, out, produced);
   }
   return launch_status();
+}
+
+}  // namespace
+
+// Scratch int32 words a call takes at this shape (the wrapper allocates
+// them): *out (host long long); rows: 1 for nlzm_lz_expand_rows.
+NLZM_API int nlzm_lz_expand_scratch(void* out, int T, int B, int N, int D, int rows, int device,
+                                    void* stream) {
+  (void)device;
+  (void)stream;
+  *(long long*)out = layout_of(T, B, N, D, rows != 0).words;
+  return 0;
+}
+
+// op_len/op_val [T, B] i32; dict [D] u8 (null when D = 0); rounds < 0:
+// until no change, else min(rounds, max_rounds); scratch: int32 words as
+// nlzm_lz_expand_scratch; out [B, N] u8; produced [B] i32.
+NLZM_API int nlzm_lz_expand(const void* op_len, const void* op_val, const void* dict,
+                            void* scratch, void* out, void* produced, int T, int B, int N, int D,
+                            int rounds, int max_rounds, int device, void* stream) {
+  cudaSetDevice(device);
+  if (B == 0) return 0;
+  if (N < 1 || D < 0 || T < 0) return (int)cudaErrorInvalidValue;
+  return run((const int*)op_len, (const int*)op_val, nullptr, 0, (const unsigned char*)dict,
+             (int*)scratch, (unsigned char*)out, (int*)produced, T, B, N, D, rounds, max_rounds,
+             device, (cudaStream_t)stream);
+}
+
+// The same on cmds [B, TP] (op_len, op_val) i32 pairs, T <= TP, TP even,
+// 16-byte aligned (csrc/assemble.cu's rows); scratch as
+// nlzm_lz_expand_scratch with rows 1.
+NLZM_API int nlzm_lz_expand_rows(const void* cmds, const void* dict, void* scratch, void* out,
+                                 void* produced, int T, int TP, int B, int N, int D, int rounds,
+                                 int max_rounds, int device, void* stream) {
+  cudaSetDevice(device);
+  if (B == 0) return 0;
+  if (N < 1 || D < 0 || T < 0 || TP < T || (TP & 1) || ((uintptr_t)cmds & 15))
+    return (int)cudaErrorInvalidValue;
+  return run(nullptr, nullptr, (const int2*)cmds, TP, (const unsigned char*)dict, (int*)scratch,
+             (unsigned char*)out, (int*)produced, T, B, N, D, rounds, max_rounds, device,
+             (cudaStream_t)stream);
 }
 
 // The launch at this shape on this device, for reports: out[0..8] (host
 // ints) = threads, dynamic shared bytes, registers a thread, resident CTAs
 // an SM, SMs, 1 on JAX's packed path, 1 with the masks in shared memory,
 // 1 with the commands transposed first, the packed emulation's slot words.
-NLZM_API int nlzm_lz_expand_shape(void* out, int T, int B, int N, int D, int device,
+NLZM_API int nlzm_lz_expand_shape(void* out, int T, int B, int N, int D, int rows, int device,
                                   void* stream) {
   (void)stream;
   cudaSetDevice(device);
-  const Layout y = layout_of(T, B, N, D);
+  const Layout y = layout_of(T, B, N, D, rows != 0);
   const void* fn = y.packed ? (const void*)lz_expand_kernel<true>
                             : (const void*)lz_expand_kernel<false>;
   cudaError_t e = smem_setup(fn, y.packed ? 0 : 1, y.smem, device);

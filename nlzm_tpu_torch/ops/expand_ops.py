@@ -14,7 +14,10 @@ command or literal word out of that path's 15/16-bit packing takes JAX's
 sorts word for word, as JAX computes it.
 
 lz_expand_parallel dispatches on the device of its inputs: CUDA tensors
-launch csrc/lz_expand.cu, CPU tensors run lz_expand_parallel_ref.
+launch csrc/lz_expand.cu, CPU tensors run lz_expand_parallel_ref. The wide
+decode's main path hands its commands over as [B, TP] (op_len, op_val)
+pairs instead (_lz_expand_rows: what csrc/assemble.cu writes, read in
+place, with no transpose); it counts as a launch of lz_expand_parallel.
 """
 
 import torch
@@ -32,14 +35,16 @@ def _max_rounds(block_size: int) -> int:
     return max(1, (block_size - 1).bit_length())
 
 
-def scratch_words(T: int, B: int, N: int, D: int) -> int:
+def scratch_words(T: int, B: int, N: int, D: int, rows: bool = False) -> int:
     """int32 scratch words of csrc/lz_expand.cu's launch (its layout_of):
     past DIRECT_B blocks or one TILE of slots, the transposed commands
-    ([B, TP] pairs, TP = T rounded up to even); on the packed path, in one
-    slot of L words a block, those and the packed emulation's sorts (L the
-    power of two at or above max(D + T + N, 2 TP)); above it two parent
-    rows, the literal bytes and, past MASK_SMEM, the masks."""
-    TP = (T + 1) & ~1 if T > 0 and (B > _DIRECT_B or T > _TILE) else 0
+    ([B, TP] pairs, TP = T rounded up to even), none when they come as
+    pairs (rows); on the packed path, in one slot of L words a block,
+    those and the packed emulation's sorts (L the power of two at or above
+    max(D + T + N, 2 TP)); above it two parent rows, the literal bytes
+    and, past MASK_SMEM, the masks."""
+    transpose = not rows and T > 0 and (B > _DIRECT_B or T > _TILE)
+    TP = (T + 1) & ~1 if transpose else 0
     if packed_path(N, D):
         return B * max(2, 1 << (max(D + T + N, 2 * TP) - 1).bit_length())
     W = (N + 31) // 32
@@ -248,6 +253,50 @@ def lz_expand_parallel(op_len, op_val, block_size: int, rounds_hint=None, dict_a
 
 
 lz_expand_parallel.launches = 0
+
+
+def _check_rows(cmds, T: int) -> None:
+    """cmds must be contiguous int32 [B, TP, 2] pairs, TP even, 0 <= T <= TP."""
+    if (cmds.dtype != torch.int32 or cmds.dim() != 3 or cmds.shape[2] != 2
+            or not cmds.is_contiguous() or cmds.shape[1] % 2 or not 0 <= T <= cmds.shape[1]):
+        raise ValueError(f"_lz_expand_rows: cmds must be contiguous int32 [B, TP, 2] pairs with "
+                         f"TP even and 0 <= T <= TP, got {cmds.dtype} {tuple(cmds.shape)} "
+                         f"(contiguous {cmds.is_contiguous()}), T = {T}")
+
+
+def _lz_expand_rows(cmds, T: int, block_size: int, rounds_hint=None, dict_arr=None):
+    """lz_expand_parallel on cmds [B, TP, 2] int32 (op_len, op_val) pairs,
+    the first T slots of each row the commands (the wide decode's main
+    path: wide_decode._assemble_rows writes them). Returns (out [B,
+    block_size] uint8, produced [B] int32). The pairs are checked (dtype,
+    shape, contiguity, T <= TP, 16-byte alignment, one CUDA device) before
+    their address reaches the kernel."""
+    _check_rows(cmds, T)
+    if cmds.device.type == "cpu":
+        return lz_expand_parallel_ref(cmds[:, :T, 0].t(), cmds[:, :T, 1].t(), block_size,
+                                      rounds_hint, dict_arr)
+    _build.check_cuda("_lz_expand_rows", cmds, dict_arr)
+    if cmds.data_ptr() % 16:
+        raise ValueError("_lz_expand_rows: cmds must be 16-byte aligned")
+    if dict_arr is not None and dict_arr.dtype != torch.uint8:
+        raise ValueError("dict_arr must be uint8")
+    B, TP = cmds.shape[:2]
+    N = block_size
+    D = 0 if dict_arr is None else int(dict_arr.shape[0])
+    dev = cmds.device
+    out = torch.empty(B, N, dtype=torch.uint8, device=dev)
+    produced = torch.empty(B, dtype=torch.int32, device=dev)
+    scratch = torch.empty(scratch_words(T, B, N, D, rows=True), dtype=torch.int32, device=dev)
+    fn = _build.entry("lz_expand", "nlzm_lz_expand_rows", 5, 7)
+    _build.launch(
+        fn,
+        [cmds.data_ptr(), None if dict_arr is None else dict_arr.data_ptr(), scratch.data_ptr(),
+         out.data_ptr(), produced.data_ptr()],
+        [T, TP, B, N, D, -1 if rounds_hint is None else int(rounds_hint), _max_rounds(N)],
+        dev,
+    )
+    lz_expand_parallel.launches += 1
+    return out, produced
 
 
 def scatter_blocks(parts, n_blocks: int, block_size: int, total_len: int, device) -> bytes:

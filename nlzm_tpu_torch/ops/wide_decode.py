@@ -6,8 +6,10 @@ Counterpart of nlzm_tpu/ops/wide_decode.py, stage for stage:
    streams, chunk-offset tables and raw-bit halfwords, uploaded as tensors;
 2. stage_windows_fused: dense per-chunk renorm windows of every plane;
 3. plane_scan_fused: the fused rANS decode of all five symbol planes;
-4. assemble_ops: plane symbols -> LZ commands (op_len, op_val) [Tc, B];
-5. expand_ops.lz_expand_parallel: commands -> bytes.
+4. assemble_ops: plane symbols -> LZ commands (op_len, op_val) [Tc, B]
+   (on the main path _assemble_rows: [B, TP] pairs);
+5. expand_ops.lz_expand_parallel: commands -> bytes (on the main path
+   _lz_expand_rows, on those pairs).
 
 Steps 2-5 each have a CUDA kernel (csrc/) and a plain PyTorch version
 (the *_ref functions). Beside them, stage_plane and plane_scan are the
@@ -44,7 +46,7 @@ from ..format.wide import (
     parse_payload,
     parse_priors,
 )
-from .expand_ops import lz_expand_parallel, scatter_blocks
+from .expand_ops import _lz_expand_rows, scatter_blocks
 from .sort_gather import compact_by_rank, gather_rows
 
 NP = N_PLANES
@@ -511,8 +513,34 @@ def _bits_fetch(bit_half, offs, width):
     return torch.where(width > 0, v, 0)
 
 
-def assemble_ops_ref(tok_y, len_y, lex_y, lit_y, slot_y, bit_half, n_cmds):
-    """Plain version of assemble_ops."""
+def _check_pack(planes, bit_half, big: bool) -> None:
+    """JAX's packed path (big false) asserts that no plane and no raw-bit
+    row is wider than its packing (2^15); raise ValueError there."""
+    if not big and any(a.shape[1] > CAP15 for a in (*planes, bit_half)):
+        raise ValueError(f"assemble_ops: a plane or the raw-bit row is wider than {CAP15} on "
+                         f"the packed path (big=False): widths "
+                         f"{[a.shape[1] for a in (*planes, bit_half)]}")
+
+
+def _packed_compaction(delta_dict, d_rank, is_dict, Tc: int, pb: int):
+    """JAX's compact_by_rank (pb 15: i32 keys) / compact_by_rank16 (pb 16:
+    u32 keys) word for word, in int64: key (rank << pb) | delta for a dict
+    (delta unmasked, so one outside the payload spills into the rank
+    bits), PACK_MAX << pb for every other slot; sorted, masked to the
+    payload, zero from the row's dict count on."""
+    rank = torch.where(is_dict, d_rank, CAP15)
+    vals = torch.where(is_dict, delta_dict, 0)
+    key = (rank << pb) | (vals if pb == 15 else vals & _U32)
+    out = key.sort(1).values & ((1 << pb) - 1)
+    live = torch.arange(Tc, device=key.device)[None, :] < is_dict.sum(1, keepdim=True)
+    return torch.where(live, out, 0)
+
+
+def assemble_ops_ref(tok_y, len_y, lex_y, lit_y, slot_y, bit_half, n_cmds, big=False,
+                     wide_delta=True):
+    """Plain version of assemble_ops (wide_delta defaults to True, JAX's
+    to False: see assemble_ops)."""
+    _check_pack((tok_y, len_y, lex_y, lit_y, slot_y), bit_half, big)
     B, Tc = tok_y.shape
     dev = tok_y.device
     tok = tok_y.long()
@@ -544,8 +572,17 @@ def assemble_ops_ref(tok_y, len_y, lex_y, lit_y, slot_y, bit_half, n_cmds):
     dv = torch.where(is_big_slot, ((2 + (slot & 1)) << ab) + extra, slot)
     delta_dict = torch.where(is_dict, dv + 1, 0)
 
-    # rep r = the r-th most recent dict distance (virtual history 1..4)
+    # rep r = the r-th most recent dict distance (virtual history 1..4);
+    # on JAX's packed path a row with a dict distance outside the payload
+    # (2^15, or 2^16 with wide_delta) compacts them as JAX's sort does
     D = compact_by_rank(delta_dict, d_rank, is_dict, Tc)
+    if not big:
+        pb = 16 if wide_delta else 15
+        bad = (is_dict & ((delta_dict < 0) | (delta_dict >= 1 << pb))).any(1)
+        if bool(bad.any()):
+            rows = bad.nonzero().flatten()
+            D[rows] = _packed_compaction(delta_dict[rows], d_rank[rows], is_dict[rows], Tc,
+                                         pb).to(torch.int32)
     j = d_rank - 1 - rep_idx
     delta_rep = torch.where(j >= 0, gather_rows(D, j.clamp(min=0)).long(), -j)
     delta = torch.where(is_rep, delta_rep, delta_dict)
@@ -557,44 +594,90 @@ def assemble_ops_ref(tok_y, len_y, lex_y, lit_y, slot_y, bit_half, n_cmds):
     return op_len.t().to(torch.int32).contiguous(), op_val.t().to(torch.int32).contiguous()
 
 
-def assemble_ops(tok_y, len_y, lex_y, lit_y, slot_y, bit_half, n_cmds):
-    """Plane symbols -> (op_len [Tc, B], op_val [Tc, B]) int32 for
-    lz_expand_parallel; Tc = tok_y.shape[1].
-
-    Plane arrays are [B, width] int32 and may be column slices (unit
-    inner stride); bit_half [B, H] int16 (u16 bits); n_cmds [B] int32.
-    """
-    if tok_y.device.type == "cpu":
-        return assemble_ops_ref(tok_y, len_y, lex_y, lit_y, slot_y, bit_half, n_cmds)
+def _assemble_launch(tok_y, len_y, lex_y, lit_y, slot_y, bit_half, n_cmds, big: bool,
+                     wide_delta: bool):
+    """csrc/assemble.cu on CUDA tensors: the [B, TP, 2] int32 pairs."""
     planes = (tok_y, len_y, lex_y, lit_y, slot_y)
     _build.check_cuda("assemble_ops", bit_half, n_cmds)
     B, Tc = tok_y.shape
     if (any(a.device != bit_half.device or a.dtype != torch.int32 or a.dim() != 2
-            or a.shape[0] != B or a.stride(1) != 1 for a in planes)
-            or bit_half.dtype != torch.int16 or n_cmds.dtype != torch.int32
-            or n_cmds.shape != (B,)):
-        raise ValueError("assemble_ops: [B, W] int32 planes with unit inner stride on the "
-                         "device of bit_half [B,H] int16, n_cmds [B] int32")
-    dev = tok_y.device
-    dscratch = torch.empty(B, Tc, dtype=torch.int32, device=dev)
-    op_len = torch.empty(Tc, B, dtype=torch.int32, device=dev)
-    op_val = torch.empty(Tc, B, dtype=torch.int32, device=dev)
-    fn = _build.entry("assemble", "nlzm_assemble", 10, 12)
+            or a.shape[0] != B or a.stride(1) != 1 or (Tc and a.shape[1] < 1) for a in planes)
+            or bit_half.dtype != torch.int16 or bit_half.dim() != 2 or bit_half.shape[0] != B
+            or (Tc and bit_half.shape[1] < 1)
+            or n_cmds.dtype != torch.int32 or n_cmds.shape != (B,)):
+        raise ValueError("assemble_ops: [B, W >= 1] int32 planes with unit inner stride on the "
+                         "device of bit_half [B, H >= 1] int16, n_cmds [B] int32")
+    _check_pack(planes, bit_half, big)
+    TP = (Tc + 1) & ~1
+    cmds = torch.empty(B, TP, 2, dtype=torch.int32, device=tok_y.device)
+    fn = _build.entry("assemble", "nlzm_assemble", 8, 14)
     geom = []
     for a in planes:
         geom += [a.shape[1], a.stride(0)]
     _build.launch(
         fn,
         [*(a.data_ptr() for a in planes), bit_half.data_ptr(), n_cmds.data_ptr(),
-         dscratch.data_ptr(), op_len.data_ptr(), op_val.data_ptr()],
-        [B, *geom, bit_half.shape[1]],
-        dev,
+         cmds.data_ptr()],
+        [B, *geom, bit_half.shape[1], TP, 0 if big else (16 if wide_delta else 15)],
+        tok_y.device,
     )
     assemble_ops.launches += 1
-    return op_len, op_val
+    return cmds
+
+
+def assemble_ops(tok_y, len_y, lex_y, lit_y, slot_y, bit_half, n_cmds, big=False,
+                 wide_delta=True):
+    """Plane symbols -> (op_len [Tc, B], op_val [Tc, B]) int32 for
+    lz_expand_parallel; Tc = tok_y.shape[1].
+
+    Plane arrays are [B, width] int32 and may be column slices (unit
+    inner stride); bit_half [B, H] int16 (u16 bits); n_cmds [B] int32.
+    big and wide_delta as in JAX's assemble_ops: big false is its packed
+    path (widths up to 2^15, else ValueError), where a dict distance past
+    2^15 (2^16 with wide_delta, a shared dictionary's reach) changes what
+    reps read as JAX's packed sort does. wide_delta defaults to True
+    where JAX's defaults to False: the 16-bit payload, which every valid
+    stream, with a dictionary or without, fits (decode_wide_staged passes
+    both as JAX's decode does). A caller of the default on a corrupt
+    stream without a dictionary, with a dict distance in [2^15, 2^16),
+    gets another answer than JAX's default gives. The
+    kernel writes [B, TP] pairs (_assemble_rows); here they are transposed
+    back with torch.
+    """
+    if tok_y.device.type == "cpu":
+        return assemble_ops_ref(tok_y, len_y, lex_y, lit_y, slot_y, bit_half, n_cmds, big,
+                                wide_delta)
+    Tc = tok_y.shape[1]
+    cmds = _assemble_launch(tok_y, len_y, lex_y, lit_y, slot_y, bit_half, n_cmds, big,
+                            wide_delta)
+    return cmds[:, :Tc, 0].t().contiguous(), cmds[:, :Tc, 1].t().contiguous()
 
 
 assemble_ops.launches = 0
+
+
+def _rows_of(op_len, op_val):
+    """[Tc, B] op_len / op_val -> [B, TP, 2] int32 pairs, TP = Tc rounded up
+    to even, the padding slot (-1, 0)."""
+    Tc, B = op_len.shape
+    cmds = torch.zeros(B, (Tc + 1) & ~1, 2, dtype=torch.int32, device=op_len.device)
+    cmds[:, :, 0] = -1
+    cmds[:, :Tc, 0] = op_len.t()
+    cmds[:, :Tc, 1] = op_val.t()
+    return cmds
+
+
+def _assemble_rows(tok_y, len_y, lex_y, lit_y, slot_y, bit_half, n_cmds, big=False,
+                   wide_delta=True):
+    """assemble_ops as the wide decode's main path takes it: [B, TP, 2]
+    int32 (op_len, op_val) pairs, TP = Tc rounded up to even (the padding
+    slot -1, 0), for expand_ops._lz_expand_rows. A launch of assemble_ops
+    on CUDA tensors; the plain version's outputs stacked on CPU ones."""
+    if tok_y.device.type == "cpu":
+        return _rows_of(*assemble_ops_ref(tok_y, len_y, lex_y, lit_y, slot_y, bit_half, n_cmds,
+                                          big, wide_delta))
+    return _assemble_launch(tok_y, len_y, lex_y, lit_y, slot_y, bit_half, n_cmds, big,
+                            wide_delta)
 
 
 # ---------------------------------------------------------- host staging
@@ -759,21 +842,25 @@ def stage_windows_of(staged):
 
 
 def decode_wide_staged(staged, block_size: int):
-    """Staged plane streams -> (out [B, block_size] uint8, produced [B])."""
+    """Staged plane streams -> (out [B, block_size] uint8, produced [B]).
+
+    As JAX's decode: blocks up to 32 KiB take the packed path (planes cut
+    to 2^15 columns, big false), with wide_delta when a shared dictionary
+    is set. The commands pass from assembly to expansion as [B, TP] pairs
+    (_assemble_rows, _lz_expand_rows)."""
     n_sym = staged["n_sym"]
+    dict_arr = staged.get("dict_arr")
     ys = _plane_scan_fused(
         staged["seeds_cat"], stage_windows_of(staged), n_sym, staged["steps"], staged["priors"],
         staged.get("slot_priors"),
     )
-    if block_size <= CAP15:
+    big = block_size > CAP15
+    if not big:
         ys = tuple(a[:, : min(a.shape[1], CAP15)] for a in ys)
     tok_y, lit_y, len_y, lex_y, slot_y = ys
-    op_len, op_val = assemble_ops(
-        tok_y, len_y, lex_y, lit_y, slot_y, staged["bit_half"], n_sym[:, 0].contiguous()
-    )
-    return lz_expand_parallel(
-        op_len, op_val, block_size, staged.get("rounds_hint"), staged.get("dict_arr")
-    )
+    cmds = _assemble_rows(tok_y, len_y, lex_y, lit_y, slot_y, staged["bit_half"],
+                          n_sym[:, 0].contiguous(), big, dict_arr is not None)
+    return _lz_expand_rows(cmds, tok_y.shape[1], block_size, staged.get("rounds_hint"), dict_arr)
 
 
 def dict_tensor(dictionary: bytes | None, device):
