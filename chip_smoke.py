@@ -153,7 +153,24 @@ card and fails (nonzero exit, no result line) on anything wrong:
     registers, shared bytes, CTAs an SM, waves), lz_expand's device ms
     on the pairs against the same commands as [T, B] (rows_vs_cols),
     and the main path's kernels on the shipping and file buckets under
-    torch.profiler: no lz_expand_transpose_kernel;
+    torch.profiler: stage_windows_kernel, assemble_kernel and
+    lz_expand_kernel once a bucket, no lz_expand_transpose_kernel; then
+    phase kernels_pack: stage_windows (csrc/stage_windows.cu) against its
+    plain version, exact, on the shipping, file (a 2 MiB bucket's two) and
+    frontier buckets and every fuzz_windows pattern (offsets below 0,
+    past H, decreasing and wrapping past 2^31, ends below the last
+    offset, pair counts past the window, B = NC = H = 1, widths and bases
+    off 16 bytes, chunk counts that leave warps idle, H past 2^15), the
+    buckets timed (sw_timing: ms, device ms, bound, threads, CTAs,
+    registers, CTAs an SM, waves); bits_forward (csrc/bits_forward.cu)
+    against its plain version, exact, on the v1 bench's fields (1024 x
+    8192), one 2 MiB file bucket's (256 x 8192) and every fuzz_bits
+    pattern (nb outside 0..24, fields crossing words and runs, zero
+    blocks, caps 1, 3, 37, around the section and the wrapper's largest,
+    B = 1, 7, 9, 255, 501, 1023, tiles of each blocks-a-CTA), the two
+    field sets timed (bits_timing: ms, device ms, bound, blocks a CTA,
+    shared bytes, registers, CTAs an SM, waves); the v1 encode's kernels
+    under torch.profiler: one bits_forward_kernel;
 20. e2e_enc_v1_opt: encode_container(parser="optimal", engine="device")
     of the 8 MiB at 8 KiB blocks, checked as 17; MB/s, the ratio and 17's
     greedy ratio;
@@ -327,6 +344,15 @@ ASM_NT_SMALL = 512
 ASM_SMALL = 1024
 ASM_CHMAX = 16384
 ASM_SMEM_MAX = 224 * 1024
+# csrc/stage_windows.cu (windows_model): chunks a CTA at most, a warp each.
+# csrc/bits_forward.cu (bits_model): threads a CTA, steps a run, the shared
+# bytes G sections may take; BITS_CAP_MAX is the largest cap its wrapper
+# takes (encode_ops._BITS_SMEM_MAX)
+SW_MAX_WARPS = 8
+BITS_NT = 512
+BITS_R = 8
+BITS_SMEM_MAX = 224 * 1024
+BITS_CAP_MAX = 204796
 
 
 def build_corpus(n: int) -> bytes:
@@ -2450,6 +2476,321 @@ def assemble_model(tok, len_, lex, lit, slot, bit_half, n_cmds, big=False, wide_
     return wrap(out).astype(np.int32)
 
 
+def fuzz_windows(seed: int, names=None) -> dict:
+    """Inputs of stage_windows_fused drawn from a seed, for the worst cases of
+    csrc/stage_windows.cu: (hw [B, H] uint16, offs [B, 5, NC] int32, ends
+    [B, 5] int32, WHs) a pattern. The draw ("valid"): B = 5, NC = 6, WHs (16,
+    48, 16, 8, 16), each chunk's pair count 0..WH_p, each plane's stream at
+    its own base of the block's row, H their sum plus 7;
+    - "offs_neg": a third of the offsets below 0; "offs_past": a third past
+      H and a third within 8 of H - 1 (the clamp); "offs_down": each plane's
+      offsets decreasing (negative pair counts); "offs_wrap": plane 0's
+      first offset within 8 of 2^31 - 1 and its second past it, wrapped
+      (the index wraps in int32, as JAX's), plane 2's fourth near -2^31;
+    - "ends_low": each plane's end below its last chunk's offset;
+      "count_past": pair counts up to 3 WH_p (the window cuts them);
+    - "b1_nc1_h1": B = 1, NC = 1, H = 1; "widths_odd": WHs (5, 13, 7, 3, 9)
+      (no 16-byte rows); "bases_odd": WHs (8, 6, 12, 8, 4) at B x NC = 15
+      (planes 1 and 2 cell by cell: a width and a base off 16 bytes);
+      "nc13_b7", "nc17_b2": chunk counts that leave a CTA's warps idle;
+    - "big_h": B = 2, NC = 48, the shipping widths, H = 40000 (past 2^15:
+      JAX's packed gather cannot take it), some offsets near H - 1.
+    names: the patterns to return (default all)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    I32 = 1 << 31
+
+    def draw(B=5, NC=6, WHs=(16, 48, 16, 8, 16), pad=7, over=1, H=None):
+        counts = np.stack([rng.integers(0, over * w + 1, (B, NC)) for w in WHs], 1)
+        lens = counts.sum(2)
+        base = np.concatenate([[0], np.cumsum(lens.max(0))[:-1]])
+        offs = base[None, :, None] + np.cumsum(counts, 2) - counts
+        ends = base[None, :] + lens
+        H = H or int(lens.max(0).sum()) + pad
+        return [rng.integers(0, 1 << 16, (B, H)), offs, ends, WHs]
+
+    def done(p):
+        hw, offs, ends, WHs = p
+        return (np.asarray(hw).astype(np.uint16), np.asarray(offs).astype(np.int32),
+                np.asarray(ends).astype(np.int32), tuple(WHs))
+
+    def change(fn, **kw):
+        p = draw(**kw)
+        fn(p)
+        return done(p)
+
+    def some(a, frac=1 / 3):
+        return rng.random(a.shape) < frac
+
+    def offs_neg(p):
+        o = p[1]
+        m = some(o)
+        o[m] = -rng.integers(1, 100, int(m.sum()))
+
+    def offs_past(p):
+        o, H = p[1], p[0].shape[1]
+        r = rng.random(o.shape)
+        o[r < 1 / 3] = H + rng.integers(0, 50, int((r < 1 / 3).sum()))
+        near = (r >= 1 / 3) & (r < 2 / 3)
+        o[near] = H - rng.integers(1, 9, int(near.sum()))
+
+    def offs_down(p):
+        o, H = p[1], p[0].shape[1]
+        o[:] = -np.sort(-rng.integers(0, H, o.shape), axis=2)
+
+    def offs_wrap(p):
+        o = p[1]
+        B = o.shape[0]
+        o[:, 0, 0] = I32 - rng.integers(1, 9, B)
+        o[:, 0, 1] = o[:, 0, 0] + rng.integers(1, 17, B) - 2 * I32
+        o[:, 2, 3] = -I32 + rng.integers(0, 5, B)
+
+    def ends_low(p):
+        p[2][:] = p[1][:, :, -1] - rng.integers(1, 10, p[2].shape)
+
+    def b1():
+        offs = rng.integers(-2, 4, (1, 5, 1))
+        ends = rng.integers(-2, 12, (1, 5))
+        return done([rng.integers(0, 1 << 16, (1, 1)), offs, ends, (8, 8, 8, 8, 8)])
+
+    def big_h(p):
+        o, H = p[1], p[0].shape[1]
+        o[:, 4, ::7] = H - rng.integers(1, 60, o[:, 4, ::7].shape)
+
+    ship = PS_WH_SHIP
+    pats = {
+        "valid": lambda: done(draw()),
+        "offs_neg": lambda: change(offs_neg),
+        "offs_past": lambda: change(offs_past),
+        "offs_down": lambda: change(offs_down),
+        "offs_wrap": lambda: change(offs_wrap),
+        "ends_low": lambda: change(ends_low),
+        "count_past": lambda: done(draw(over=3)),
+        "b1_nc1_h1": b1,
+        "widths_odd": lambda: done(draw(WHs=(5, 13, 7, 3, 9))),
+        "bases_odd": lambda: done(draw(B=3, NC=5, WHs=(8, 6, 12, 8, 4))),
+        "nc13_b7": lambda: done(draw(B=7, NC=13)),
+        "nc17_b2": lambda: done(draw(B=2, NC=17)),
+        "big_h": lambda: change(big_h, B=2, NC=48, WHs=ship, H=40000),
+    }
+    return {k: pats[k]() for k in (names or pats)}
+
+
+def windows_model(hw, offs, ends, WHs, stats=None):
+    """numpy model of csrc/stage_windows.cu -> the five windows [NC, B, WH_p]
+    int32: the output as one buffer, each plane's rows cut into units of 4
+    cells (WH_p and the plane's base multiples of 4) or of 1; a warp per
+    (block, chunk) walks the chunk's units in plane order, a unit's plane
+    found by compares against the planes' first units; the chunk's offsets
+    and next offsets (the stream end for the last chunk) give each plane's
+    first pair and its pair count, both wrapping in int32; a cell k of a
+    unit reads hw[b, clamp(first + k, 0, H - 1)] below the count and is 0
+    past it. Every cell must be written exactly once. stats: units and
+    cells of the 4-cell kind a chunk."""
+    import numpy as np
+
+    hw = np.asarray(hw).astype(np.int64)
+    offs, ends = np.asarray(offs).astype(np.int64), np.asarray(ends).astype(np.int64)
+    B, H = hw.shape
+    NC = offs.shape[2]
+    wrap = lambda x: ((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+    base, width, first, acc = [], [], [0], 0
+    for w in WHs:
+        base.append(acc)
+        width.append(4 if w % 4 == 0 and acc % 4 == 0 else 1)
+        first.append(first[-1] + w // width[-1])
+        acc += NC * B * w
+    u = np.arange(first[-1])
+    p = sum((u >= first[q]).astype(np.int64) for q in range(1, 5))
+    f, wd, wh, bs = (np.asarray(a, np.int64)[p] for a in (first[:5], width, WHs, base))
+    k0 = (u - f) * wd
+    out = np.zeros(acc, np.int64)
+    hits = np.zeros(acc, np.int64)
+    for b in range(B):
+        for c in range(NC):
+            o = offs[b, :, c]
+            n = wrap((offs[b, :, c + 1] if c + 1 < NC else ends[b]) - o)
+            dst = bs + (c * B + b) * wh + k0
+            for i in range(4):
+                m = i < wd
+                k = k0[m] + i
+                idx = np.clip(wrap(o[p[m]] + k), 0, max(H - 1, 0))
+                live = (k < n[p[m]]) & (H > 0)
+                out[dst[m] + i] = np.where(live, hw[b, idx] if H else 0, 0)
+                np.add.at(hits, dst[m] + i, 1)
+    if not (hits == 1).all():
+        raise AssertionError("windows_model: a cell written other than once")
+    if stats is not None:
+        stats.update(units=first[-1], wide_units=int((wd == 4).sum()), widths=width)
+    wins, pos = [], 0
+    for w in WHs:
+        n = NC * B * w
+        wins.append(out[pos : pos + n].reshape(NC, B, w).astype(np.int32))
+        pos += n
+    return tuple(wins)
+
+
+def bits_need(fields) -> int:
+    """The largest n_bytes (total bits // 8 + 4) of a block of these fields."""
+    import numpy as np
+
+    nb = np.clip(np.asarray(fields[1], np.int64), 0, 24) + np.clip(
+        np.asarray(fields[3], np.int64), 0, 24)
+    return int(nb.sum(0).max(initial=0)) // 8 + 4
+
+
+def fuzz_bits(seed: int, names=None, card: bool = False) -> dict:
+    """Inputs of bits_forward drawn from a seed, for the worst cases of
+    csrc/bits_forward.cu: ((va, nb_a, vb, nb_b) [T, B] int32, cap) a
+    pattern, values any 32 bits. The draw: nb 0..24; "need" below is the
+    largest block's n_bytes:
+    - "random": T = 300, B = 9, cap need + 37; "nb_out": T = 200, B = 7, nb
+      -40..60 (both clamps), cap need;
+    - "straddle": T = 1100, B = 9, nb_a 24, nb_b 23 (every field crosses
+      words; runs start inside words), cap need + 16; "zero_blocks": T =
+      300, B = 9, blocks 0 and 3 nb 0, block 5 values 0, cap need;
+    - "cap1", "cap3", "cap37": T = 150, B = 7, those caps; "cap_under",
+      "cap_over": T = 256, B = 9, cap need - 1 and need + 1; "cap_max": T =
+      64, B = 3, BITS_CAP_MAX (one block a CTA);
+    - "b1": T = 700, B = 1; "b1023": T = 24, B = 1023.
+    card=True adds tile edges of every blocks-a-CTA on a 132-SM card (G 8,
+    4, 2: 1024, 2048 and 4096 steps a tile), with ragged groups:
+    "tiles_b1023" (T = 2100, B = 1023), "tiles_b501" (T = 4200, B = 501),
+    "tiles_b255" (T = 8300, B = 255), nb 20..24, cap need. names: the
+    patterns to return (default all)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def draw(T, B, lo=0, hi=24):
+        v = lambda: rng.integers(-(1 << 31), 1 << 31, (T, B))
+        n = lambda: rng.integers(lo, hi + 1, (T, B))
+        return [v(), n(), v(), n()]
+
+    def done(f, cap=None, extra=0):
+        f = tuple(np.asarray(a).astype(np.int32) for a in f)
+        return f, (cap if cap is not None else bits_need(f) + extra)
+
+    def straddle():
+        f = draw(1100, 9)
+        f[1][:], f[3][:] = 24, 23
+        return done(f, extra=16)
+
+    def zero_blocks():
+        f = draw(300, 9)
+        f[1][:, [0, 3]] = f[3][:, [0, 3]] = 0
+        f[0][:, 5] = f[2][:, 5] = 0
+        return done(f)
+
+    def capped(T, B, delta):
+        f = draw(T, B)
+        return done(f, bits_need(f) + delta)
+
+    pats = {
+        "random": lambda: done(draw(300, 9), extra=37),
+        "nb_out": lambda: done(draw(200, 7, -40, 60)),
+        "straddle": straddle,
+        "zero_blocks": zero_blocks,
+        **{f"cap{c}": (lambda c=c: done(draw(150, 7), c)) for c in (1, 3, 37)},
+        "cap_under": lambda: capped(256, 9, -1),
+        "cap_over": lambda: capped(256, 9, 1),
+        "cap_max": lambda: done(draw(64, 3), BITS_CAP_MAX),
+        "b1": lambda: done(draw(700, 1)),
+        "b1023": lambda: done(draw(24, 1023)),
+    }
+    if card:
+        for T, B in ((2100, 1023), (4200, 501), (8300, 255)):
+            pats[f"tiles_b{B}"] = lambda T=T, B=B: done(draw(T, B, 20, 24))
+    return {k: pats[k]() for k in (names or pats)}
+
+
+def bits_model(fields, cap: int, R: int = BITS_R, stats=None):
+    """numpy model of csrc/bits_forward.cu -> (out [B, cap] uint8, n_bytes [B]
+    int32): per block, runs of R steps; a run's first bit the sum of the
+    runs' bit lengths before it; its bits built in a 64-bit accumulator,
+    each whole word stored, its first (when it starts inside a word) and its
+    last partial word ORed (a stored word that another run also writes
+    fails the model); words past cap dropped; byte cap - 1 zeroed once full
+    bytes + 4 reach cap; each row copied out from byte b * cap of a 16-byte
+    aligned buffer: bytes to its first 16-byte boundary, then 16-byte
+    chunks built from the words byte-swapped and funnel-shifted, then the
+    tail's bytes. stats: stores and ORs of words."""
+    import numpy as np
+
+    M32, M64 = (1 << 32) - 1, (1 << 64) - 1
+    va, na, vb, nb = (np.asarray(f).astype(np.int64) for f in fields)
+    T, B = na.shape
+    nw = (cap + 3) // 4
+    SW = (nw + 1) | 1
+    out = np.zeros((B, cap), np.uint8)
+    n_bytes = np.zeros(B, np.int32)
+    st = dict(stores=0, ors=0)
+    for b in range(B):
+        nx, ny = np.clip(na[:, b], 0, 24), np.clip(nb[:, b], 0, 24)
+        x = [int(v) for v in (va[:, b] & M32) & ((1 << nx) - 1)]
+        y = [int(v) for v in (vb[:, b] & M32) & ((1 << ny) - 1)]
+        nx, ny = [int(v) for v in nx], [int(v) for v in ny]
+        words = [0] * SW
+        writers, stored = {}, set()
+
+        def emit(w, word, shared, r):
+            if w >= nw:
+                return
+            writers.setdefault(w, set()).add(r)
+            if shared:
+                words[w] |= word
+                st["ors"] += 1
+            else:
+                words[w] = word
+                stored.add(w)
+                st["stores"] += 1
+
+        off = 0
+        for r, t0 in enumerate(range(0, T, R)):
+            steps = range(t0, min(T, t0 + R))
+            s = sum(nx[t] + ny[t] for t in steps)
+            if s:
+                w, used, head, acc = off >> 5, off & 31, (off & 31) != 0, 0
+                for t in steps:
+                    for v, n in ((x[t], nx[t]), (y[t], ny[t])):
+                        acc |= (v << ((64 - used - n) & 63)) & M64
+                        used += n
+                        if used >= 32:
+                            emit(w, acc >> 32, head, r)
+                            head, acc, used, w = False, (acc << 32) & M64, used - 32, w + 1
+                if used:
+                    emit(w, acc >> 32, True, r)
+            off += s
+        if any(len(writers[w]) != 1 for w in stored):
+            raise AssertionError("bits_model: a stored word holds another run's bits")
+        full = off >> 3
+        n_bytes[b] = full + 4
+        if full + 4 >= cap:
+            i = cap - 1
+            words[i >> 2] &= ~(0xFF << (24 - 8 * (i & 3))) & M32
+        wd = np.asarray(words, np.uint64)
+        byte_of = lambda i: ((wd[i >> 2] >> (24 - 8 * (i & 3)).astype(np.uint64)) & 0xFF)
+        h = min((16 - (b * cap) % 16) % 16, cap)
+        nchunk = (cap - h) >> 4
+        tail = h + 16 * nchunk
+        edge = np.r_[np.arange(h), np.arange(tail, cap)]
+        out[b, edge] = byte_of(edge).astype(np.uint8)
+        if nchunk:
+            i = h + 16 * np.arange(nchunk)
+            sh = (8 * (i & 3)).astype(np.uint64)
+            bs = np.asarray(words, np.uint32).byteswap().astype(np.uint64)  # bytes in order
+            for k in range(4):
+                lo, hi = bs[(i >> 2) + k], bs[(i >> 2) + k + 1]
+                o = (((hi << np.uint64(32)) | lo) >> sh) & np.uint64(M32)
+                for j in range(4):
+                    out[b, i + 4 * k + j] = ((o >> np.uint64(8 * j)) & np.uint64(0xFF)).astype(
+                        np.uint8)
+    if stats is not None:
+        stats.update(st)
+    return out, n_bytes
+
+
 def ps_quot(n, d):
     """csrc/plane_scan.cu's quot: floor(n / d) for 0 <= n < 2^31 and d >= 1,
     as the multiply-high of n by floor((2^32 - 1) / d) and one correction
@@ -2763,13 +3104,9 @@ def check_kernels(tally: Tally, buckets, block_size: int):
     from nlzm_tpu_torch.ops import wide_decode as wd
 
     for staged, _ in buckets:
-        B = staged["hw_cat"].shape[0]
         sw = (staged["hw_cat"], staged["offs"], staged["ends"], staged["WHs"])
-        NC = staged["offs"].shape[2]
-        win_elems = sum(NC * B * w for w in staged["WHs"])
         wins = tally.hold("stage_windows", lambda: wd.stage_windows_fused(*sw),
-                          lambda: wd.stage_windows_fused_ref(*sw),
-                          work=(nbytes(*sw[:3]) + 4 * win_elems, 2 * win_elems))
+                          lambda: wd.stage_windows_fused_ref(*sw), work=sw_work(sw))
         ps = (staged["seeds_cat"], wins, staged["n_sym"], staged["steps"], staged["priors"])
         # the main path's entry: the container's u16 priors are not checked,
         # and come staged in slot order
@@ -3265,18 +3602,13 @@ def check_kernels_v1enc(tally: Tally, data: bytes, device):
     from nlzm_tpu_torch.ops import encode_ops as eo
 
     N = V1_ENC["block_size"]
-    arr, nv = eo._blocks_arrays(data, N)
-    dt, nvt = torch.as_tensor(arr, device=device), torch.as_tensor(nv, device=device)
-    B, T = dt.shape[0], (N + 255) // 256 * 256
-    rans_cap = rans_frame_cap(N)  # encode_blocks_device's caps
-    bits_cap = ((N + 64 + 255) // 256) * 256
-    delta, mlen = eo.find_matches(dt, nvt, (1 << V1_ENC_HIST_BITS) - 1)
-    op_len, op_val = eo.greedy_cover(dt, delta, mlen, nvt, T)
+    _, rans_cap, bits_cap = eo.frame_caps(N)  # encode_blocks_device's caps
+    op_len, op_val = v1_commands(data, device)
+    T, B = op_len.shape
     op_rep = tally.hold("repify", lambda: eo.repify(op_len, op_val),
                         lambda: eo.repify_ref(op_len, op_val), timed=False)
     rep_v1 = rep_timing(op_len, op_val)
     cmds = (op_len, op_val, op_rep)
-    del delta, mlen
 
     spans, fields, nops = eo.emit_model(*cmds)  # for the work count
     n_cmd = int(torch.count_nonzero(op_len >= 0))
@@ -3286,14 +3618,13 @@ def check_kernels_v1enc(tally: Tally, data: bytes, device):
     spans, fields, nops = tally.hold(
         "emit_model", lambda: eo.emit_model(*cmds), lambda: eo.emit_model_ref(*cmds),
         reps_plain=0, work=(nbytes(*cmds, spans, *fields, nops), 64 * n_cmd + 68 * n_span))
-    # rans_backward: rans_work; bits_forward: ~20 a step (masks, scan, two ORs)
     tally.hold("rans_backward", lambda: eo.rans_backward(spans, rans_cap),
                lambda: eo.rans_backward_ref(spans, rans_cap), reps_plain=0,
                work=rans_work(spans, rans_cap))
     rans_v1 = rans_timing(spans, rans_cap)
     tally.hold("bits_forward", lambda: eo.bits_forward(fields, bits_cap),
                lambda: eo.bits_forward_ref(fields, bits_cap), reps_plain=1,
-               work=(nbytes(*fields) + B * (bits_cap + 4), 20 * T * B))
+               work=bits_work(fields, bits_cap))
     cap = V1_ENC_SMALL_CAP
     tally.hold("rans_backward", lambda: eo.rans_backward(spans, cap),
                lambda: eo.rans_backward_ref(spans, cap), timed=False)
@@ -3666,7 +3997,9 @@ def rep_timing(op_len, op_val) -> dict:
 
 def rans_frame_cap(T: int) -> int:
     """encode_blocks_device's rANS cap for blocks of T rows (N = T)."""
-    return ((3 * T + 64 + 255) // 256) * 256
+    from nlzm_tpu_torch.ops import encode_ops as eo
+
+    return eo.frame_caps(T)[1]
 
 
 def rans_shape(B: int) -> dict:
@@ -4398,9 +4731,9 @@ def asm_inputs(ship_c: bytes, front_c: bytes, device, seed: int = 7):
 def main_path_kernels(block_size: int, buckets) -> dict:
     """{kernel: launches} of one decode_wide_staged over each bucket under
     torch.profiler: the first of up to 5 profiles that traced
-    assemble_kernel and lz_expand_kernel once a bucket each; raises when
-    none did, so a lost trace never reads as a main path without a
-    transpose."""
+    stage_windows_kernel, assemble_kernel and lz_expand_kernel once a
+    bucket each; raises when none did, so a lost trace never reads as a
+    main path without a transpose."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -4409,7 +4742,8 @@ def main_path_kernels(block_size: int, buckets) -> dict:
     run = lambda: [wd.decode_wide_staged(staged, block_size) for staged, _ in buckets]
     run()
     torch.cuda.synchronize()
-    want = {"assemble_kernel": len(buckets), "lz_expand_kernel": len(buckets)}
+    want = {"stage_windows_kernel": len(buckets), "assemble_kernel": len(buckets),
+            "lz_expand_kernel": len(buckets)}
     for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             run()
@@ -4484,6 +4818,231 @@ def check_assemble(tally: Tally, ship_c: bytes, front_c: bytes, device) -> dict:
     if any("transpose" in n for k in kernels.values() for n in k):
         raise AssertionError(f"the main path transposes its commands: {kernels}")
     return {"asm_timing": timing, "rows_vs_cols": rows_vs_cols, "main_path_kernels": kernels,
+            "seconds": time.perf_counter() - t0}
+
+
+def sw_work(sw):
+    """stage_windows' (bytes, ops): hw_cat, offs and ends read once, the
+    windows written once; ~2 operations a cell."""
+    hw, offs, ends, WHs = sw
+    cells = sum(offs.shape[2] * hw.shape[0] * w for w in WHs)
+    return nbytes(hw, offs, ends) + 4 * cells, 2 * cells
+
+
+def sw_shape(B: int, NC: int) -> dict:
+    """csrc/stage_windows.cu's launch at (B, NC) on this card
+    (nlzm_stage_windows_shape): threads a CTA, CTAs, registers a thread,
+    resident CTAs an SM, waves, chunk groups a block."""
+    import ctypes
+
+    import torch
+
+    from nlzm_tpu_torch import _build
+
+    out = (ctypes.c_int * 6)()
+    st = _build.entry("stage_windows", "nlzm_stage_windows_shape", 1, 2)(
+        ctypes.addressof(out), B, NC, torch.cuda.current_device(), None)
+    if st:
+        raise RuntimeError(f"nlzm_stage_windows_shape: CUDA error {st}")
+    threads, ctas, regs, per_sm, sms, groups = out
+    return dict(threads=threads, ctas=ctas, registers=regs, ctas_per_sm=per_sm,
+                waves=-(-ctas // (per_sm * sms)) if per_sm else None, chunk_groups=groups)
+
+
+def sw_timing(sw) -> dict:
+    """stage_windows_fused on these arguments: CUDA-event mean of
+    KERNEL_REPS back-to-back calls (ms), its device time (device_ms,
+    kernel_device_ms), the bound (sw_work) and the launch shape (sw_shape)."""
+    from nlzm_tpu_torch.ops import wide_decode as wd
+
+    call = lambda: wd.stage_windows_fused(*sw)
+    call()
+    ms = timed_mean(call, KERNEL_REPS)
+    b_ms, b_by = bound(*sw_work(sw))
+    B, NC = sw[0].shape[0], sw[1].shape[2]
+    return dict(blocks=B, chunks=NC, H=sw[0].shape[1], WHs=list(sw[3]), ms=ms,
+                device_ms=kernel_device_ms(call, "stage_windows"), bound_ms=b_ms, bound_by=b_by,
+                **sw_shape(B, NC))
+
+
+def sw_inputs(ship_c: bytes, front_c: bytes, device, seed: int = 7):
+    """(label, stage_windows_fused arguments on `device`, timed) of the
+    shapes the kernel is held at: the shipping buckets, the two quantile
+    buckets of one 2 MiB file bucket, the frontier buckets (timed), and
+    every fuzz_windows(seed) pattern."""
+    import numpy as np
+    import torch
+
+    for tag, make in (("ship", lambda: stage(ship_c, device)),
+                      ("file", lambda: file_buckets(ship_c, device)),
+                      ("frontier", lambda: stage(front_c, device))):
+        _, buckets = make()
+        for i, (st, _) in enumerate(buckets):
+            yield f"{tag}_{i}", (st["hw_cat"], st["offs"], st["ends"], st["WHs"]), True
+        del buckets
+    put = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
+    for pat, (hw, offs, ends, WHs) in fuzz_windows(seed).items():
+        yield pat, (put(hw.view(np.int16)), put(offs), put(ends), WHs), False
+
+
+def bits_work(fields, cap: int):
+    """bits_forward's (bytes, ops): the four fields read once, the sections
+    and counts written once; ~20 operations a step (masks, scan, two
+    fields packed)."""
+    T, B = fields[1].shape
+    return nbytes(*fields) + B * (cap + 4), 20 * T * B
+
+
+def bits_group(B: int, cap: int) -> int:
+    """csrc/bits_forward.cu's blocks a CTA (group_of): 8, halved while the
+    grid would have fewer than 16 G CTAs or G sections would pass
+    BITS_SMEM_MAX."""
+    sec = 4 * ((((cap + 3) // 4) + 1) | 1)
+    G = 8
+    while G > 1 and (G * sec > BITS_SMEM_MAX or -(-B // G) < 16 * G):
+        G //= 2
+    return G
+
+
+def bits_shape(B: int, cap: int) -> dict:
+    """csrc/bits_forward.cu's launch at (B, cap) on this card
+    (nlzm_bits_shape): blocks a CTA, threads a CTA, dynamic shared bytes,
+    registers a thread, resident CTAs an SM, waves, steps a tile."""
+    import ctypes
+
+    import torch
+
+    from nlzm_tpu_torch import _build
+
+    out = (ctypes.c_int * 7)()
+    st = _build.entry("bits_forward", "nlzm_bits_shape", 1, 2)(
+        ctypes.addressof(out), B, cap, torch.cuda.current_device(), None)
+    if st:
+        raise RuntimeError(f"nlzm_bits_shape: CUDA error {st}")
+    G, threads, smem, regs, per_sm, sms, tile = out
+    ctas = -(-B // G)
+    return dict(blocks_per_cta=G, threads=threads, smem_bytes=smem, registers=regs,
+                ctas=ctas, ctas_per_sm=per_sm,
+                waves=-(-ctas // (per_sm * sms)) if per_sm else None, tile_steps=tile)
+
+
+def bits_timing(fields, cap: int) -> dict:
+    """bits_forward on these fields: CUDA-event mean of KERNEL_REPS
+    back-to-back calls (ms), its device time (device_ms), the bound
+    (bits_work) and the launch shape (bits_shape)."""
+    from nlzm_tpu_torch.ops import encode_ops as eo
+
+    call = lambda: eo.bits_forward(fields, cap)
+    call()
+    ms = timed_mean(call, KERNEL_REPS)
+    b_ms, b_by = bound(*bits_work(fields, cap))
+    T, B = fields[1].shape
+    return dict(steps=T, blocks=B, cap=cap, ms=ms,
+                device_ms=kernel_device_ms(call, "bits_forward"), bound_ms=b_ms, bound_by=b_by,
+                **bits_shape(B, cap))
+
+
+def v1_commands(data: bytes, device):
+    """The v1 device encode's greedy commands of `data` at V1_ENC's blocks
+    (find_matches, greedy_cover): (op_len, op_val), [T, B] on `device`."""
+    import torch
+
+    from nlzm_tpu_torch.ops import encode_ops as eo
+
+    N = V1_ENC["block_size"]
+    arr, nv = eo._blocks_arrays(data, N)
+    dt, nvt = torch.as_tensor(arr, device=device), torch.as_tensor(nv, device=device)
+    delta, mlen = eo.find_matches(dt, nvt, (1 << V1_ENC_HIST_BITS) - 1)
+    return eo.greedy_cover(dt, delta, mlen, nvt, eo.frame_caps(N)[0])
+
+
+def v1_fields(data: bytes, device):
+    """The v1 device encode's raw-bit fields of `data` at V1_ENC's blocks
+    (v1_commands, repify, emit_model) and its bits cap."""
+    from nlzm_tpu_torch.ops import encode_ops as eo
+
+    op_len, op_val = v1_commands(data, device)
+    _, fields, _ = eo.emit_model(op_len, op_val, eo.repify(op_len, op_val))
+    return fields, eo.frame_caps(V1_ENC["block_size"])[2]
+
+
+# blocks of the v1 fields bits_forward is timed at: the v1 bench (8 MiB at
+# 8 KiB blocks), a 2 MiB file bucket and a 64 KiB file
+BITS_BLOCKS = (1024, STREAM_BUCKET // V1_ENC["block_size"], 8)
+
+
+def bits_inputs(data: bytes, device, seed: int = 7, blocks=BITS_BLOCKS):
+    """(label, (fields on `device`, cap), timed) of the shapes bits_forward
+    is held at: the v1 fields of `data` (the v1 bench's, 1024 x 8192) and of
+    each of its first `blocks` blocks (a block's fields are those of its own
+    bytes: 256 blocks are a 2 MiB file bucket's, 8 a 64 KiB file's), timed,
+    and every fuzz_bits(seed, card=True) pattern."""
+    import numpy as np
+    import torch
+
+    fields, cap = v1_fields(data, device)
+    T, B = fields[0].shape
+    for nb in blocks:
+        nb = min(nb, B)
+        yield f"v1_{nb}x{T}", (tuple(f[:, :nb].contiguous() for f in fields), cap), True
+    del fields
+    put = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
+    for pat, (f, cap) in fuzz_bits(seed, card=True).items():
+        yield pat, (tuple(put(a) for a in f), cap), False
+
+
+def v1_encode_kernels(data: bytes, device) -> dict:
+    """{kernel: launches} of one v1 device encode (V1_ENC) under
+    torch.profiler: the first of up to 3 profiles that traced one
+    bits_forward_kernel; raises when none did."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from nlzm_tpu_torch.parallel.blocks import encode_container
+
+    run = lambda: encode_container(data, device=device, engine="device", **V1_ENC)
+    run()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        names = {e.key: e.count for e in prof.key_averages() if e.count}
+        if sum(c for n, c in names.items() if "bits_forward_kernel" in n) == 1:
+            return names
+    raise AssertionError(f"no profile of the v1 encode traced one bits_forward_kernel: {names}")
+
+
+def check_pack(tally: Tally, ship_c: bytes, front_c: bytes, data: bytes, device) -> dict:
+    """Phase kernels_pack: stage_windows at every sw_inputs shape and
+    bits_forward at every bits_inputs shape against their plain versions,
+    exact, untimed in the tally (and bits_forward's blocks a CTA against
+    bits_group's); the buckets and the v1 fields timed
+    (sw_timing, bits_timing); the v1 encode's kernels under torch.profiler
+    (v1_encode_kernels). Returns the phase's fields."""
+    from nlzm_tpu_torch.ops import encode_ops as eo
+    from nlzm_tpu_torch.ops import wide_decode as wd
+
+    t0 = time.perf_counter()
+    windows, bits = {}, {}
+    for label, sw, timed in sw_inputs(ship_c, front_c, device):
+        tally.hold("stage_windows", lambda: wd.stage_windows_fused(*sw),
+                   lambda: wd.stage_windows_fused_ref(*sw), timed=False)
+        if timed:
+            windows[label] = sw_timing(sw)
+        del sw
+    for label, (fields, cap), timed in bits_inputs(data, device):
+        tally.hold("bits_forward", lambda: eo.bits_forward(fields, cap),
+                   lambda: eo.bits_forward_ref(fields, cap), timed=False)
+        B = fields[0].shape[1]
+        if bits_shape(B, cap)["blocks_per_cta"] != bits_group(B, cap):
+            raise AssertionError(f"bits_forward at {label}: the kernel's G differs from "
+                                 f"bits_group's {bits_group(B, cap)}")
+        if timed:
+            bits[label] = bits_timing(fields, cap)
+        del fields
+    return {"sw_timing": windows, "bits_timing": bits,
+            "v1_encode_kernels": v1_encode_kernels(data, device),
             "seconds": time.perf_counter() - t0}
 
 
@@ -5235,6 +5794,11 @@ def main() -> int:
           "timing": f"CUDA events, mean of {KERNEL_REPS} back-to-back calls of the main path's "
                     f"entry (_assemble_rows); device_ms from torch.profiler; registers, CTAs an "
                     f"SM and waves from the CUDA runtime", "card": card})
+    pack = check_pack(tally, wide_c, front_c, corpus[:V1_ENC_BYTES], "cuda")
+    emit({"phase": "kernels_pack", "ok": True, **pack,
+          "timing": f"CUDA events, mean of {KERNEL_REPS} back-to-back calls; device_ms from "
+                    f"torch.profiler; registers, CTAs an SM and waves from the CUDA runtime",
+          "card": card})
     plane_launches, plane_shape = check_plane_decode(tally, wide_c, "cuda")
     emit({"phase": "kernels_plane_decode", "ok": True, **plane_shape,
           "kernels": tally.summary(("plane_decode",)), "launches": plane_launches,

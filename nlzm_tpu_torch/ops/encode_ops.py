@@ -978,6 +978,15 @@ def check_one_frame(block_size: int, hist_bits: int) -> None:
             f"native engine)")
 
 
+def frame_caps(block_size: int) -> tuple[int, int, int]:
+    """(num_steps, rans_cap, bits_cap) of encode_blocks_device's frames at
+    blocks of block_size bytes: steps for all literals, and each section's
+    worst case (3 and 1 bytes a byte, plus 64) rounded up to 256."""
+    N = block_size
+    return ((N + 255) // 256) * 256, ((3 * N + 64 + 255) // 256) * 256, \
+        ((N + 64 + 255) // 256) * 256
+
+
 def encode_blocks_device(data: bytes, block_size: int, hist_bits: int, parser: str = "greedy",
                          *, device="cuda"):
     """Encode v1 blocks on `device`, one NLZM frame per block; returns
@@ -989,10 +998,7 @@ def encode_blocks_device(data: bytes, block_size: int, hist_bits: int, parser: s
     arr, n_valid = _blocks_arrays(data, block_size)
     if arr.shape[0] == 0:
         return [], [], []
-    N = block_size
-    num_steps = ((N + 255) // 256) * 256  # worst case: all literals
-    rans_cap = ((3 * N + 64 + 255) // 256) * 256
-    bits_cap = ((N + 64 + 255) // 256) * 256
+    num_steps, rans_cap, bits_cap = frame_caps(block_size)
     dev = torch.device(device)
     return frame_payloads(*encode_pipeline_device(
         torch.as_tensor(arr, device=dev), torch.as_tensor(n_valid, device=dev),

@@ -83,7 +83,8 @@ def rounds_hint_of(max_depth: int):
 
 
 def stage_windows_fused_ref(hw_cat, offs, ends, WHs):
-    """Plain version of stage_windows_fused."""
+    """Plain version of stage_windows_fused. Pair counts and pair indices
+    wrap in int32, as JAX's do."""
     B, H = hw_cat.shape
     src = hw_cat.long() & 0xFFFF
     nxt = torch.cat([offs[:, :, 1:], ends[:, :, None]], dim=2)
@@ -92,7 +93,7 @@ def stage_windows_fused_ref(hw_cat, offs, ends, WHs):
     wins = []
     for p in range(NP):
         k = torch.arange(WHs[p], device=hw_cat.device)
-        q = offs[:, p, :, None].long() + k  # [B, NC, WH_p]
+        q = ((offs[:, p, :, None].long() + k + (1 << 31)) & _U32) - (1 << 31)  # [B, NC, WH_p]
         w = gather_rows(src, q.reshape(B, NC * WHs[p])).reshape(B, NC, WHs[p])
         w = torch.where(k < pc[:, p, :, None], w, 0)
         wins.append(w.permute(1, 0, 2).contiguous())
@@ -537,9 +538,8 @@ def _packed_compaction(delta_dict, d_rank, is_dict, Tc: int, pb: int):
 
 
 def assemble_ops_ref(tok_y, len_y, lex_y, lit_y, slot_y, bit_half, n_cmds, big=False,
-                     wide_delta=True):
-    """Plain version of assemble_ops (wide_delta defaults to True, JAX's
-    to False: see assemble_ops)."""
+                     wide_delta=False):
+    """Plain version of assemble_ops."""
     _check_pack((tok_y, len_y, lex_y, lit_y, slot_y), bit_half, big)
     B, Tc = tok_y.shape
     dev = tok_y.device
@@ -626,7 +626,7 @@ def _assemble_launch(tok_y, len_y, lex_y, lit_y, slot_y, bit_half, n_cmds, big: 
 
 
 def assemble_ops(tok_y, len_y, lex_y, lit_y, slot_y, bit_half, n_cmds, big=False,
-                 wide_delta=True):
+                 wide_delta=False):
     """Plane symbols -> (op_len [Tc, B], op_val [Tc, B]) int32 for
     lz_expand_parallel; Tc = tok_y.shape[1].
 
@@ -635,12 +635,8 @@ def assemble_ops(tok_y, len_y, lex_y, lit_y, slot_y, bit_half, n_cmds, big=False
     big and wide_delta as in JAX's assemble_ops: big false is its packed
     path (widths up to 2^15, else ValueError), where a dict distance past
     2^15 (2^16 with wide_delta, a shared dictionary's reach) changes what
-    reps read as JAX's packed sort does. wide_delta defaults to True
-    where JAX's defaults to False: the 16-bit payload, which every valid
-    stream, with a dictionary or without, fits (decode_wide_staged passes
-    both as JAX's decode does). A caller of the default on a corrupt
-    stream without a dictionary, with a dict distance in [2^15, 2^16),
-    gets another answer than JAX's default gives. The
+    reps read as JAX's packed sort does. Both default as in JAX
+    (decode_wide_staged passes them as JAX's decode does). The
     kernel writes [B, TP] pairs (_assemble_rows); here they are transposed
     back with torch.
     """
@@ -668,7 +664,7 @@ def _rows_of(op_len, op_val):
 
 
 def _assemble_rows(tok_y, len_y, lex_y, lit_y, slot_y, bit_half, n_cmds, big=False,
-                   wide_delta=True):
+                   wide_delta=False):
     """assemble_ops as the wide decode's main path takes it: [B, TP, 2]
     int32 (op_len, op_val) pairs, TP = Tc rounded up to even (the padding
     slot -1, 0), for expand_ops._lz_expand_rows. A launch of assemble_ops

@@ -105,6 +105,22 @@ def test_assemble_big_matches_jax(pattern):
                                   _pairs(j_len, j_val))
 
 
+@pytest.mark.parametrize("pattern", SPILLS)
+@pytest.mark.parametrize("seed", SEEDS)
+def test_assemble_default_matches_jax_default(seed, pattern):
+    """Both entries called with their defaults (big and wide_delta false in
+    JAX's assemble_ops and in the port's) give JAX's commands on the spill
+    classes, where a dict distance in [2^15, 2^16) sorts apart under the
+    two payloads."""
+    a = _set(seed)[pattern]
+    ol, ov = jwd.assemble_ops(*(jnp.asarray(np.ascontiguousarray(x)) for x in a[:5]),
+                              jnp.asarray(a[5]), jnp.asarray(a[6]))
+    t_len, t_val = twd.assemble_ops_ref(*_torch(a))
+    np.testing.assert_array_equal(t_len.numpy(), np.asarray(ol))
+    np.testing.assert_array_equal(t_val.numpy(), np.asarray(ov))
+    np.testing.assert_array_equal(twd._assemble_rows(*_torch(a)).numpy(), _pairs(ol, ov))
+
+
 @pytest.mark.parametrize("seed", SEEDS)
 def test_assemble_flags_spills_only(seed):
     """The kernel's trigger for JAX's compaction: every block of a spill

@@ -133,7 +133,8 @@ def test_assemble_ops_matches_jax(case):
     st = twd.staged_from_jax(j["staged"], "cpu")
     tok_y, lit_y, len_y, lex_y, slot_y = (_t(a) for a in j["ys"])
     op_len, op_val = twd.assemble_ops(
-        tok_y, len_y, lex_y, lit_y, slot_y, st["bit_half"], st["n_sym"][:, 0].contiguous())
+        tok_y, len_y, lex_y, lit_y, slot_y, st["bit_half"], st["n_sym"][:, 0].contiguous(),
+        wide_delta=CASES[case][1].get("dict_size", 0) > 0)
     np.testing.assert_array_equal(op_len.numpy(), j["ops"][0])
     np.testing.assert_array_equal(op_val.numpy(), j["ops"][1])
 
@@ -186,6 +187,7 @@ def test_wide_kernels_match_ref(case, cuda):
         assert torch.equal(g, w)
     ys = tuple(a[:, : min(a.shape[1], twd.CAP15)] for a in ys)
     tok_y, lit_y, len_y, lex_y, slot_y = ys
-    asm = (tok_y, len_y, lex_y, lit_y, slot_y, st["bit_half"], st["n_sym"][:, 0].contiguous())
+    asm = (tok_y, len_y, lex_y, lit_y, slot_y, st["bit_half"], st["n_sym"][:, 0].contiguous(),
+           False, CASES[case][1].get("dict_size", 0) > 0)
     for g, w in zip(twd.assemble_ops(*asm), twd.assemble_ops_ref(*asm)):
         assert torch.equal(g, w)
