@@ -51,17 +51,22 @@ card and fails (nonzero exit, no result line) on anything wrong:
     shapes (245 blocks), each against its plain version, exact, with
     CUDA-event times: find_matches with 1 and 3 candidates (reach 32767),
     greedy_cover and repify on its output (repify also with ns a match,
-    ns a row and rep_model's runs: rep_timing), plane_encode on the five
-    planes (with priors) of the bench's native-parsed commands, and on a
-    synthetic 4-row plane;
+    ns a row and rep_model's runs: rep_timing), plane_encode_planes (the
+    five planes in one launch) on the bench's native-parsed commands with
+    and without priors (each plane also through plane_encode) and on 1 MiB
+    of random bytes at 128 KiB blocks (its lit plane through the large
+    path), each timed with device ms, bound and launch shape
+    (pe_timing; the plain version timed on its comparison call), and
+    plane_encode on a synthetic 4-row plane;
 14. e2e_enc_greedy: encode_container(profile="wide", parser="greedy",
     engine="device") of the 8 MB on the card; the device plane encode's
     payloads and priors on the device-parsed commands must equal
     native.wide_encode's, the container must hold them, and the card's
-    decode must return the input; encode MB/s and the ratio;
+    decode must return the input; one plane_encode launch; encode MB/s
+    and the ratio;
 15. e2e_enc_pipeline: encode_pipeline_device at 32 KiB blocks, timed as
-    bench.py:313-334 (parse, staging, run); its payloads on all 8 MB
-    must equal native.wide_encode's;
+    bench.py:313-334 (parse, staging, run: one plane_encode launch); its
+    payloads on all 8 MB must equal native.wide_encode's;
 16. kernels_v1enc: the v1 device encode's kernels at the 8 MiB, 8 KiB-block
     shapes (1024 blocks, 8192 steps, reach 8191): emit_model on the
     kernels' greedy commands, rans_backward on its spans and bits_forward
@@ -84,7 +89,10 @@ card and fails (nonzero exit, no result line) on anything wrong:
     shapes (3 candidates): dp_parse with the default costs and with the
     [B, 6] rows measure_costs gives after round 1, dp_cover on its
     choices, measure_costs on emit_model's spans, each against its plain
-    version, exact, with CUDA-event times; untimed, dp_parse and
+    version, exact, with CUDA-event times; measure_costs also held at the
+    wide optimal shape (245 x 32768) and on a 2 MiB bucket's 256 blocks,
+    and each of its three shapes timed with device ms, bound and launch
+    shape (mc_timing); untimed, dp_parse and
     dp_cover's global-scratch walk at 128 KiB blocks on 1 MiB, all three
     on fuzz_opt (wraps and clamps) and dp_parse on fuzz_dp_runs (runs,
     short and long reaches, five max_len, both cost rows); dp_parse also
@@ -290,7 +298,7 @@ HUFF_PAGE = {nt: 32 * ((smem - (2 << 14) - HUFF_SPAN_BYTES * nt - 16) // 8 - 2)
 V1_OPT_LAUNCHES = dict(find_matches=1, dp_parse=3, dp_cover=3, repify=3, emit_model=3,
                        measure_costs=2, rans_backward=1, bits_forward=1)
 WIDE_OPT_LAUNCHES = dict(find_matches=1, dp_parse=3, dp_cover=3, repify=3, emit_model=2,
-                         measure_costs=2, plane_encode=5)
+                         measure_costs=2, plane_encode=1)
 V1OPT_KERNELS = tuple(V1_OPT_LAUNCHES)
 WIDEOPT_KERNELS = tuple(WIDE_OPT_LAUNCHES)
 NLZC = dict(bytes=4 << 20, block_size=16384)  # bench.py:371-394, NLZM_BENCH_NLZC=1
@@ -323,6 +331,11 @@ MAX_MATCH = 264  # a match's longest length (encode_ops.MAX_MLEN)
 # spec of tests/test_wide.py and a 2-read one, read 1 keyed by row0 * 8 + y
 SYNTH_PLANES = {"four_row": ("dst", 8, 1, (16,), (4,)), "two_read": ("dst", 24, 2, (8, 16), (4, 32))}
 SYNTH_BLOCKS = 245
+PE_BIG_BLOCK = 131072  # parallel/blocks.py WIDE_MAX_BLOCK: plane_encode's large path
+# the synthetic two_read plane on plane_encode's large path: blocks, most
+# symbols a block (~1700 steps, ~215 chunks: fences in two windows)
+PE_LARGE_BLOCKS = 12
+PE_LARGE_COUNT = 40800
 # csrc/plane_scan.cu's scheme (scan_model): slot order (lanes, alphabet,
 # wire plane), its ring of window rows (slots; a chunk's row copied up to
 # PS_MAX_CLEN lanes' worth of pairs), the 8-bit register counts of tok
@@ -2962,7 +2975,16 @@ def scan_model(seeds, wins, n_syms, steps: int, priors=None, stats=None):
     return tuple(outs)
 
 
+_LAST_EMIT = [time.perf_counter()]
+
+
 def emit(obj) -> None:
+    """Print obj as one JSON line; a phase line also gets phase_seconds, the
+    host seconds since the line before it."""
+    now = time.perf_counter()
+    if "phase" in obj:
+        obj = {**obj, "phase_seconds": now - _LAST_EMIT[0]}
+    _LAST_EMIT[0] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -3459,11 +3481,87 @@ def plane_work(args):
     return ins + outs, live * 36 + len(chunk_schedule(steps)) * B * table * 4
 
 
+def pe_work(staged):
+    """plane_encode_planes' (bytes, ops): plane_work summed over its planes."""
+    works = [plane_work(a) for a in staged]
+    return sum(w[0] for w in works), sum(w[1] for w in works)
+
+
+def pe_inputs(data: bytes, device):
+    """plane_encode_planes' inputs, [(label, staged planes)]: the bench's
+    commands (8 MB at 32 KiB blocks, bench_commands) with and without
+    priors ("ship", "ship_no_priors"), and 1 MiB of random bytes at 128 KiB
+    blocks (WIDE_MAX_BLOCK), all literals but a few matches by chance, with
+    and without priors ("all_literal_128k", "all_literal_128k_no_priors":
+    its lit plane, 2048 steps, takes the large path)."""
+    import numpy as np
+
+    from nlzm_tpu_torch import native
+    from nlzm_tpu_torch.format import wide
+    from nlzm_tpu_torch.ops import wide_encode_dev as we
+
+    out = []
+    batched = wide.batch_plane_arrays(*bench_commands(data))[1]
+    priors = wide.build_priors_from_batched(batched)
+    for label, pri in (("ship", priors), ("ship_no_priors", None)):
+        out.append((label, [we.stage_plane(batched, pri, i, device) for i in range(wide.N_PLANES)]))
+    rnd = np.random.default_rng(3).integers(0, 256, 8 * PE_BIG_BLOCK, dtype=np.uint8).tobytes()
+    op_len, op_val = native.parse_blocks(rnd, PE_BIG_BLOCK, 17)
+    op_len = np.ascontiguousarray(op_len, np.int32)
+    op_val = np.ascontiguousarray(op_val, np.int32)
+    native.lift_deep(op_len, op_val, PE_BIG_BLOCK)
+    big = wide.batch_plane_arrays(op_len, op_val, native.classify_reps(op_len, op_val))[1]
+    bpri = wide.build_priors_from_batched(big)
+    for label, pri in (("all_literal_128k", bpri), ("all_literal_128k_no_priors", None)):
+        out.append((label, [we.stage_plane(big, pri, i, device) for i in range(wide.N_PLANES)]))
+    return out
+
+
+def pe_shape(staged) -> dict:
+    """csrc/plane_encode.cu's launch for the planes `staged` on this card
+    (nlzm_plane_encode_shape): CTAs, threads, dynamic shared bytes,
+    registers a thread, resident CTAs an SM, waves, the large planes and
+    their scratch bytes."""
+    import ctypes
+
+    import torch
+
+    from nlzm_tpu_torch import _build
+    from nlzm_tpu_torch.format.wide import PLANES
+    from nlzm_tpu_torch.ops import wide_encode_dev as we
+
+    plan, smem, scratch = we.launch_plan([(PLANES[a[3]], a[4], a[2].shape[0]) for a in staged])
+    out = (ctypes.c_int * 4)()
+    st = _build.entry("plane_encode", "nlzm_plane_encode_shape", 1, 1)(
+        ctypes.addressof(out), smem, torch.cuda.current_device(), None)
+    if st:
+        raise RuntimeError(f"nlzm_plane_encode_shape: CUDA error {st}")
+    regs, ctas, sms, threads = out
+    grid = sum(a[2].shape[0] for a in staged)
+    return dict(ctas=grid, threads=threads, smem_bytes=smem, registers=regs, ctas_per_sm=ctas,
+                waves=-(-grid // (ctas * sms)) if ctas else None,
+                large=[PLANES[staged[i][3]].name for i, _, large, _ in plan if large],
+                scratch_bytes=scratch)
+
+
+def pe_timing(staged) -> dict:
+    """plane_encode_planes on `staged`: ms (CUDA events, mean of
+    KERNEL_REPS calls), device ms a launch (torch.profiler), the bound
+    and the launch shape."""
+    from nlzm_tpu_torch.ops import wide_encode_dev as we
+
+    fn = lambda: we.plane_encode_planes(staged)
+    return dict(ms=timed_mean(fn, KERNEL_REPS), device_ms=kernel_device_ms(fn, "plane_encode"),
+                bound_ms=bound(*pe_work(staged))[0], shape=pe_shape(staged))
+
+
 def check_kernels_enc(tally: Tally, data: bytes, device):
     """The four encode kernels against their plain versions at the 8 MB,
     32 KiB-block shapes: find_matches with 1 and 3 candidates, greedy_cover
-    and repify on its output, plane_encode on the five planes (with
-    priors) of the bench's commands, and on a synthetic 4-row plane."""
+    and repify on its output, plane_encode_planes on pe_inputs (the five
+    planes in one launch; the shipping planes also one at a time),
+    plane_encode on a synthetic 4-row plane, and its large path on a
+    synthetic two-read plane (check_pe_large)."""
     import numpy as np
     import torch
 
@@ -3496,14 +3594,26 @@ def check_kernels_enc(tally: Tally, data: bytes, device):
                reps_plain=1, work=rep_work(op_len))
     rep_wide = rep_timing(op_len, op_val)
 
-    batched = wide.batch_plane_arrays(*bench_commands(data))[1]
-    priors = wide.build_priors_from_batched(batched)
-    steps = {}
-    for i, spec in enumerate(wide.PLANES):
-        args = we.stage_plane(batched, priors, i, device)
-        steps[spec.name] = args[4]
-        tally.hold("plane_encode", lambda: we.plane_encode(*args),
-                   lambda: we.plane_encode_ref(*args), work=plane_work(args))
+    # plane_encode: the five planes in one launch (the main path's entry),
+    # with and without priors, each plane through the one-plane entry too;
+    # then the 128 KiB all-literal input, whose lit plane takes the large path
+    pe = {}
+    for label, staged in pe_inputs(data, device):
+        if label.startswith("all_literal_128k"):
+            plan = we.launch_plan([(wide.PLANES[a[3]], a[4], a[2].shape[0]) for a in staged])[0]
+            if [wide.PLANES[staged[i][3]].name for i, _, large, _ in plan if large] != ["lit"]:
+                raise AssertionError("kernels_enc: the 128 KiB all-literal lit plane did not "
+                                     "take the large path")
+        tally.hold("plane_encode", lambda: we.plane_encode_planes(staged),
+                   lambda: [we.plane_encode_ref(*a) for a in staged], reps_plain=0,
+                   work=pe_work(staged), timed=label == "ship")
+        if label == "ship":
+            steps = {wide.PLANES[a[3]].name: a[4] for a in staged}
+            for args in staged:
+                tally.hold("plane_encode", lambda: we.plane_encode(*args),
+                           lambda: we.plane_encode_ref(*args), timed=False)
+        if not label.endswith("_no_priors"):
+            pe[label] = pe_timing(staged)
 
     # the multi-row machinery: the synthetic 4-row, 16-symbol plane of
     # tests/test_wide.py in place of dst, with a prior; untimed
@@ -3526,7 +3636,53 @@ def check_kernels_enc(tally: Tally, data: bytes, device):
                    lambda: we.plane_encode_ref(*args4), timed=False)
     finally:
         wide.PLANES = planes
-    return {"blocks": B, "commands": n_cmd, "plane_steps": steps, "repify": rep_wide}
+    pe["synthetic_large"] = check_pe_large(tally, device)
+    return {"blocks": B, "commands": n_cmd, "plane_steps": steps, "repify": rep_wide,
+            "plane_encode": pe}
+
+
+def check_pe_large(tally: Tally, device) -> dict:
+    """plane_encode's large path on a plane of several reads and context
+    rows: SYNTH_PLANES' two_read spec in place of dst, PE_LARGE_BLOCKS
+    blocks of up to PE_LARGE_COUNT symbols (one block empty, one at steps
+    x lanes), so that its counts and fences live in device scratch and
+    the backward pass takes its fences in two windows; held against the
+    plain version with its priors and with uniform tables; untimed."""
+    import numpy as np
+    import torch
+
+    from nlzm_tpu_torch.format import wide
+    from nlzm_tpu_torch.ops import wide_encode_dev as we
+
+    put = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=device)
+    spec, counts, syms, rows, _, steps, prior = synth_plane(
+        SYNTH_PLANES["two_read"], 5, PE_LARGE_BLOCKS, PE_LARGE_COUNT)
+    counts[0], counts[1] = 0, steps * spec.lanes
+    smem, large, _ = we.plane_layout(spec, steps)
+    windows = -(-len(wide.chunk_schedule(steps)) // max(1, smem // (2 * sum(
+        spec.rows[r] * (spec.alphabets[r] + 1) for r in range(spec.reads)))))
+    if not large or windows < 2:
+        raise AssertionError(f"kernels_enc: the synthetic large plane (steps {steps}) took "
+                             f"large={large}, {windows} windows; want the large path, 2+")
+    planes = wide.PLANES
+    wide.PLANES = planes[:4] + (spec,)
+    try:
+        base = (tuple(put(a) for a in syms), tuple(None if r is None else put(r) for r in rows),
+                put(counts), 4, steps)
+        for pri in (tuple(put(a) for a in prior), None):
+            args = base + (pri,)
+            tally.hold("plane_encode", lambda: we.plane_encode(*args),
+                       lambda: we.plane_encode_ref(*args), timed=False)
+    finally:
+        wide.PLANES = planes
+    return {"spec": SYNTH_PLANES["two_read"], "blocks": PE_LARGE_BLOCKS, "steps": steps,
+            "windows": windows, "symbols": int(counts.sum())}
+
+
+def one_plane_launch(label: str, launches: dict) -> None:
+    """Fail unless a wide encode's five planes took one plane_encode launch."""
+    if launches["plane_encode"] != 1:
+        raise AssertionError(f"{label}: {launches['plane_encode']} plane_encode launches, not 1")
 
 
 def run_encode(tally: Tally, data: bytes, device, card: str, ratios: dict):
@@ -3544,13 +3700,15 @@ def run_encode(tally: Tally, data: bytes, device, card: str, ratios: dict):
     emit({"phase": "kernels_enc", "ok": True, **shape,
           "kernels": tally.summary(ENC_KERNELS + ("find_matches_c3",)),
           "timing": f"CUDA events, mean of {KERNEL_REPS} back-to-back calls (plane_encode: "
-                    f"summed over the five planes); plain: 3 calls for find_matches, 1 for "
-                    f"greedy_cover and repify (the comparison call past 1 s), {KERNEL_REPS} "
-                    f"for plane_encode", "card": card})
+                    f"one launch for the five planes); plain: 3 calls for find_matches, 1 for "
+                    f"greedy_cover and repify (the comparison call past 1 s), the comparison "
+                    f"call for plane_encode; plane_encode's device_ms from torch.profiler",
+          "card": card})
 
     by_path = {}
     enc = lambda: encode_container(data, device=device, engine="device", **ENC_GREEDY)
     container, by_path["e2e_enc_greedy"] = launched("e2e_enc_greedy", ENC_KERNELS, enc)
+    one_plane_launch("e2e_enc_greedy", by_path["e2e_enc_greedy"])
     # the device plane encode against the native one on the device-parsed ops
     op_len, op_val, op_rep, _ = parse_blocks_device(
         data, ENC_GREEDY["block_size"], ENC_HIST_BITS, device=device)
@@ -3577,6 +3735,7 @@ def run_encode(tally: Tally, data: bytes, device, card: str, ratios: dict):
 
     (run, parse_s, stage, first_s), by_path["e2e_enc_pipeline"] = launched(
         "e2e_enc_pipeline", ("plane_encode",), pipeline)
+    one_plane_launch("e2e_enc_pipeline", by_path["e2e_enc_pipeline"])
     ops = bench_commands(data)
     if encode_wide_blocks_device(*ops, device=device) != native.wide_encode(*ops):
         raise AssertionError("e2e_enc_pipeline: device payloads differ from native.wide_encode")
@@ -3809,12 +3968,20 @@ def check_kernels_opt(tally: Tally, data: bytes, device):
     rep_opt = rep_timing(op_len, op_val)
     spans, _, _ = eo.emit_model(op_len, op_val, op_rep)
     mc = (spans, op_len, op_val, op_rep)
-    # measure_costs: ~8 operations a row (loads, family tests), ~4 a span
-    # (table lookup, add)
     costs = tally.hold("measure_costs", lambda: eo.measure_costs(*mc),
-                       lambda: eo.measure_costs_ref(*mc),
-                       work=(nbytes(*mc) + 4 * 6 * B,
-                             8 * T * B + 4 * int(torch.count_nonzero(spans))))
+                       lambda: eo.measure_costs_ref(*mc), work=mc_work(mc))
+    # measure_costs also at the wide optimal shape and on a 2 MiB file
+    # bucket (the first 256 blocks), held, then each shape timed
+    mcs = {"1024x8192": mc,
+           "245x32768": mc_round1(data[:SHIP_BYTES], WIDE_OPT["block_size"], ENC_HIST_BITS,
+                                  device),
+           "256x8192": tuple(a[:, :256].contiguous() for a in mc)}
+    for label, args in mcs.items():
+        if label != "1024x8192":
+            tally.hold("measure_costs", lambda: eo.measure_costs(*args),
+                       lambda: eo.measure_costs_ref(*args), timed=False)
+    mc_times = {label: mc_timing(args) for label, args in mcs.items()}
+    del mcs
     tally.hold("dp_parse", lambda: eo.dp_parse(delta, mlen, nvt, costs),
                lambda: eo.dp_parse_ref(delta, mlen, nvt, costs), reps_plain=0,
                work=dp_work(delta, mlen, nvt, costs, N))
@@ -3893,7 +4060,71 @@ def check_kernels_opt(tally: Tally, data: bytes, device):
     return {"blocks": B, "steps": T, "commands_round1": n_cmd,
             "big_cover": dict(blocks=bt.shape[0], **BIG_COVER), "emit_model_wide": wide,
             "dp_parse_8k": dp_8k, "dp_parse_wide": dp_wide, "dp_parse_long_match": dp_long,
+            "measure_costs": mc_times,
             "repify_opt_round1": rep_opt, "rans_opt_final": rans_opt}
+
+
+def mc_work(mc):
+    """measure_costs' (bytes, ops): the spans and command arrays read once,
+    the costs written; ~8 operations a row (loads, family tests), ~4 a
+    span (table lookup, add)."""
+    import torch
+
+    spans, op_len = mc[0], mc[1]
+    T, B = op_len.shape
+    return nbytes(*mc) + 4 * 6 * B, 8 * T * B + 4 * int(torch.count_nonzero(spans))
+
+
+def mc_round1(data: bytes, block_size: int, hist_bits: int, device):
+    """measure_costs' input in an optimal parse's first round: (spans,
+    op_len, op_val, op_rep) of the commands dp_parse (default costs) and
+    dp_cover choose from three candidates a position, emit_model's spans."""
+    import torch
+
+    from nlzm_tpu_torch.ops import encode_ops as eo
+
+    arr, nv = eo._blocks_arrays(data, block_size)
+    dt, nvt = torch.as_tensor(arr, device=device), torch.as_tensor(nv, device=device)
+    delta, mlen = eo.find_matches(dt, nvt, (1 << hist_bits) - 1, 3)
+    op_len, op_val = eo.dp_cover(dt, delta, *eo.dp_parse(delta, mlen, nvt), nvt,
+                                 (block_size + 255) // 256 * 256)
+    op_rep = eo.repify(op_len, op_val)
+    return eo.emit_model(op_len, op_val, op_rep)[0], op_len, op_val, op_rep
+
+
+def mc_shape(T: int, B: int) -> dict:
+    """csrc/measure_costs.cu's launch at T x B on this card
+    (nlzm_measure_costs_shape, encode_ops.cost_split): the grid (block
+    groups x step ranges), steps a range, registers a thread, resident
+    CTAs an SM and waves."""
+    import ctypes
+
+    import torch
+
+    from nlzm_tpu_torch import _build
+    from nlzm_tpu_torch.ops.encode_ops import cost_split
+
+    out = (ctypes.c_int * 4)()
+    st = _build.entry("measure_costs", "nlzm_measure_costs_shape", 1, 0)(
+        ctypes.addressof(out), torch.cuda.current_device(), None)
+    if st:
+        raise RuntimeError(f"nlzm_measure_costs_shape: CUDA error {st}")
+    regs, ctas, sms, threads = out
+    groups, splits, rows = cost_split(T, B, sms)
+    return dict(groups=groups, splits=splits, rows=rows, threads=threads, registers=regs,
+                ctas_per_sm=ctas, waves=-(-groups * splits // (ctas * sms)) if ctas else None)
+
+
+def mc_timing(mc) -> dict:
+    """measure_costs on mc: ms (CUDA events, mean of KERNEL_REPS calls, the
+    scratch's zeroing included), device ms (torch.profiler), the bound and
+    the launch shape."""
+    from nlzm_tpu_torch.ops import encode_ops as eo
+
+    fn = lambda: eo.measure_costs(*mc)
+    T, B = mc[1].shape
+    return dict(ms=timed_mean(fn, KERNEL_REPS), device_ms=kernel_device_ms(fn, "measure_costs"),
+                bound_ms=bound(*mc_work(mc))[0], shape=mc_shape(T, B))
 
 
 def cover_work(name: str, args, op_len, op_val):
@@ -5303,20 +5534,21 @@ def run_opt_encode(tally: Tally, data: bytes, device, card: str, greedy: dict):
     return by_path
 
 
-def synth_plane(fields, seed: int):
-    """A synthetic dst spec's plane over SYNTH_BLOCKS blocks, from a seed:
-    (spec, counts [B], per-read symbols, per-read rows (None for one row),
-    ctx, steps, per-read prior), numpy int32; read r > 0 is keyed by
-    row0 * 8 + the previous read's symbol, as the decoder keys it."""
+def synth_plane(fields, seed: int, blocks: int = SYNTH_BLOCKS, max_count: int = 4000):
+    """A synthetic dst spec's plane over `blocks` blocks of up to
+    `max_count` symbols, from a seed: (spec, counts [B], per-read symbols,
+    per-read rows (None for one row), ctx, steps, per-read prior), numpy
+    int32; read r > 0 is keyed by row0 * 8 + the previous read's symbol,
+    as the decoder keys it."""
     import numpy as np
 
     from nlzm_tpu_torch.format import wide
 
     spec = wide.PlaneSpec(*fields)
     rng = np.random.default_rng(seed)
-    counts = rng.integers(0, 4001, SYNTH_BLOCKS).astype(np.int32)
+    counts = rng.integers(0, max_count + 1, blocks).astype(np.int32)
     steps = wide.padded_steps(int(counts.max()), spec.lanes)
-    shape = (SYNTH_BLOCKS, steps * spec.lanes)
+    shape = (blocks, steps * spec.lanes)
     live = np.arange(shape[1])[None, :] < counts[:, None]
     ctx = np.where(live, rng.integers(0, spec.rows[0], shape), 0).astype(np.int32)
     syms, rows = [], []
@@ -5833,7 +6065,7 @@ def main() -> int:
     shapes = dict.fromkeys(replaces, "e2e_ship buckets")
     shapes["fsm_decode"] = "e2e_v1_bench buckets"
     shapes.update(dict.fromkeys(ENC_KERNELS[:3], "8 MB at 32 KiB blocks, 245 blocks"))
-    shapes["plane_encode"] = "the bench's 8 MB commands, five planes with priors"
+    shapes["plane_encode"] = "the bench's 8 MB commands, five planes with priors, one launch"
     shapes.update(dict.fromkeys(V1ENC_KERNELS[3:], "8 MiB at 8 KiB blocks, 1024 blocks"))
     shapes.update(dict.fromkeys(OPT_KERNELS, "8 MiB at 8 KiB blocks, 1024 blocks, 3 candidates"))
     shapes["plane_decode"] = "the e2e_ship buckets' ten wire planes, each at its own steps"

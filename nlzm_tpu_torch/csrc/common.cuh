@@ -68,25 +68,75 @@ __device__ __forceinline__ void block_exclusive_scan(int (&v)[NV], int (&total)[
 
 constexpr int CDF_TOTAL = 1 << 14;  // the wide profile's 14-bit CDF scale
 
-// Wide-profile fences [alph + 1] from counts [alph], as format/wide.py
-// build_cdf: freq = 1 + carry * (2^14 - alph) / (total + 1), fences the
-// exclusive prefix sums with the last pinned at 2^14. Called by one whole
-// warp.
-__device__ __forceinline__ void build_fences(const int* carry, int* fen, int alph) {
-  const int lane = threadIdx.x & 31;
-  int tot = 0;
-  for (int k = lane; k < alph; k += 32) tot += carry[k];
-  tot = warp_sum(tot);
-  int run = 0;
-  for (int k0 = 0; k0 < alph; k0 += 32) {
-    const int k = k0 + lane;
-    int fr = 0;
-    if (k < alph) fr = 1 + (int)(((long long)carry[k] * (CDF_TOTAL - alph)) / (tot + 1));
-    const int inc = warp_inclusive_sum(fr);
-    if (k < alph) fen[k] = run + inc - fr;
-    run += __shfl_sync(0xffffffffu, inc, 31);
+// A symbol's wide-profile frequency from its count, as format/wide.py
+// build_cdf: 1 + carry * (2^14 - alph) / (total + 1), truncated. rt is
+// 1 / (total + 1) within 2 ulp (rcp.approx). Where 0 <= carry <= total the
+// quotient is below 2^14, so the float estimate is within 1 of it and one
+// correction each way makes it exact; else (negative or huge priors) an
+// i64 division.
+__device__ __forceinline__ int cdf_freq(int carry, int alph, int tot, float rt) {
+  const long long num = (long long)carry * (CDF_TOTAL - alph);
+  if (carry >= 0 && carry <= tot && num <= 0xFFFFFFFFLL) {
+    const long long den = (long long)tot + 1;
+    long long q = __float2uint_rz(__uint2float_rn((unsigned)num) * rt);
+    const long long rem = num - q * den;
+    q += (rem >= den) - (rem < 0);
+    return 1 + (int)q;
   }
-  if (lane == 0) fen[alph] = CDF_TOTAL;
+  return 1 + (int)(num / (tot + 1));
+}
+
+__device__ __forceinline__ float rcp_approx(float v) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+// Wide-profile fences [alph + 1] from counts [alph] (cdf_freq), the
+// exclusive prefix sums with the last pinned at 2^14. Called by one whole
+// warp; F is the fences' type (int, or uint16_t where they are stored as
+// u16: every fence is in 0..2^14 for counts in 0..2^31). From 33 to 256
+// symbols a lane takes a run of ceil(alph / 32) and the warp scans the
+// runs once; else 32 symbols a round.
+template <typename F>
+__device__ __forceinline__ void build_fences(const int* carry, F* fen, int alph) {
+  const int lane = threadIdx.x & 31;
+  if (alph > 32 && alph <= 256) {
+    const int m = (alph + 31) >> 5, k0 = lane * m;
+    int fr[8], run = 0, tot = 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      fr[i] = i < m && k0 + i < alph ? carry[k0 + i] : 0;
+      tot += fr[i];
+    }
+    tot = warp_sum(tot);
+    const float rt = rcp_approx((float)tot + 1.0f);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      fr[i] = i < m && k0 + i < alph ? cdf_freq(fr[i], alph, tot, rt) : 0;
+      run += fr[i];
+    }
+    int f = warp_inclusive_sum(run) - run;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (i < m && k0 + i < alph) fen[k0 + i] = (F)f;
+      f += fr[i];
+    }
+  } else {
+    int tot = 0;
+    for (int k = lane; k < alph; k += 32) tot += carry[k];
+    tot = warp_sum(tot);
+    const float rt = rcp_approx((float)tot + 1.0f);
+    int run = 0;
+    for (int k0 = 0; k0 < alph; k0 += 32) {
+      const int k = k0 + lane;
+      const int fr = k < alph ? cdf_freq(carry[k], alph, tot, rt) : 0;
+      const int inc = warp_inclusive_sum(fr);
+      if (k < alph) fen[k] = (F)(run + inc - fr);
+      run += __shfl_sync(0xffffffffu, inc, 31);
+    }
+  }
+  if (lane == 0) fen[alph] = (F)CDF_TOTAL;
   __syncwarp();
 }
 

@@ -484,6 +484,35 @@ def measure_costs_ref(spans, op_len, op_val, op_rep):
     return torch.stack(out, dim=1).to(torch.int32)
 
 
+MC_G = 8  # csrc/measure_costs.cu: blocks a CTA (a 32-byte sector of a [T, B] row)
+MC_ROWS = 32  # steps a pass of its 256 threads
+MC_CTAS_PER_SM = 4  # CTAs resident an SM (its __launch_bounds__)
+_sm_counts: dict = {}
+
+
+def cost_split(T: int, B: int, sms: int) -> tuple[int, int, int]:
+    """measure_costs' grid: (groups, splits, rows). groups = ceil(B / MC_G)
+    block groups, each cut into `splits` ranges of `rows` steps (a multiple
+    of MC_ROWS; the last range may be short or empty), the most that keep
+    the grid within one wave of MC_CTAS_PER_SM CTAs an SM, so a few blocks
+    still fill the card."""
+    groups = -(-B // MC_G)
+    if T <= 0 or groups == 0:
+        return groups, 1, MC_ROWS
+    passes = -(-T // MC_ROWS)
+    splits = max(1, min(sms * MC_CTAS_PER_SM // groups, passes, 65535))
+    rows = -(-passes // splits) * MC_ROWS
+    return groups, -(-T // rows), rows
+
+
+def _sm_count(device) -> int:
+    key = str(device)
+    n = _sm_counts.get(key)
+    if n is None:
+        n = _sm_counts[key] = torch.cuda.get_device_properties(device).multi_processor_count
+    return n
+
+
 def measure_costs(spans, op_len, op_val, op_rep):
     """Per-block realized DP costs of an emitted command stream.
 
@@ -512,11 +541,17 @@ def measure_costs(spans, op_len, op_val, op_rep):
     _i32("measure_costs", spans, op_len, op_val, op_rep)
     T, B, _ = spans.shape
     dev = spans.device
+    if spans.data_ptr() % 8:  # the kernel reads spans in 8-byte pairs
+        spans = spans.clone()
+    groups, splits, rows = cost_split(T, B, _sm_count(dev))
     costs = torch.empty(B, 6, dtype=torch.int32, device=dev)
-    fn = _build.entry("measure_costs", "nlzm_measure_costs", 7, 2)
+    # [B, 5] u64 sums, [B, 5] u32 counts, a u32 counter a block group
+    scratch = torch.zeros((60 * B + 4 * groups + 7) // 8, dtype=torch.int64, device=dev)
+    fn = _build.entry("measure_costs", "nlzm_measure_costs", 8, 4)
     _build.launch(fn, [spans.data_ptr(), op_len.data_ptr(), op_val.data_ptr(),
                        op_rep.data_ptr(), bits16_table(dev).data_ptr(),
-                       _default_costs_on(dev).data_ptr(), costs.data_ptr()], [T, B], dev)
+                       _default_costs_on(dev).data_ptr(), costs.data_ptr(), scratch.data_ptr()],
+                  [T, B, splits, rows], dev)
     measure_costs.launches += 1
     return costs
 

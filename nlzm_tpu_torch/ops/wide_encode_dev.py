@@ -6,14 +6,17 @@ recording each symbol's (start, freq), then advances L interleaved rANS
 lanes backward, emitting 16-bit renorm pairs where the host encoder
 does; csrc/plane_encode.cu is the kernel, plane_encode_ref its plain
 PyTorch version (CPU tensors run the plain version, CUDA tensors launch
-the kernel). The payloads are byte-identical to the host encoders'
-(nlzm_tpu's numpy format.wide.encode_wide_blocks and native.wide_encode).
+the kernel). plane_encode_planes encodes a batch's five planes in one
+launch; the device encodes run it. The payloads are byte-identical to the
+host encoders' (nlzm_tpu's numpy format.wide.encode_wide_blocks and
+native.wide_encode).
 
 The rANS state is u32 throughout; the renorm predicate x >= freq << 18 is
 evaluated as (x >> 18) >= freq, which cannot overflow at freq = 2^14.
 Lane seeds come back as int32 tensors holding the u32 bits.
 """
 
+import functools
 import time
 
 import numpy as np
@@ -22,7 +25,7 @@ import torch
 from .. import _build, native
 from ..constants import CDF_SCALE_BITS, CDF_SCALE_TOTAL
 from ..format import wide
-from .wide_decode import _build_cdf, _schedule_tensor
+from .wide_decode import _build_cdf
 
 _U32 = 0xFFFFFFFF
 
@@ -91,27 +94,53 @@ def plane_encode_ref(syms, rows, n_sym, plane_idx: int, steps: int, prior=None):
     return seeds, pairs.reshape(B, steps * R * L), mask.reshape(B, steps * R * L)
 
 
-def plane_encode(syms, rows, n_sym, plane_idx: int, steps: int, prior=None):
-    """Encode one plane for all blocks.
+PE_SMEM_MAX = 224 * 1024  # shared bytes a plane's keys and tables may take (csrc/plane_encode.cu)
+PE_MAX_READS = 8
+PE_THREADS = 256  # threads a CTA; a lane a thread in the backward pass
+PE_MAX_LANES = PE_THREADS
 
-    syms: per read r, [B, steps * L] symbols (uint8 or int32, one dtype);
-    rows: per read r, [B, steps * L] int32 context rows, or None for row 0;
-    n_sym [B] int32 symbol counts; prior: None, or per read [rows, alph]
-    int32 warm-start counts. Returns (seeds [B, L] int32 holding the u32
-    final lane states, pairs [B, steps * R * L] int32 renorm pair values,
-    mask [B, steps * R * L] bool emission mask), in decode order.
-    """
-    if syms[0].device.type == "cpu":
-        return plane_encode_ref(syms, rows, n_sym, plane_idx, steps, prior)
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+@functools.lru_cache(maxsize=256)
+def plane_layout(spec, steps: int) -> tuple[int, bool, int]:
+    """Where csrc/plane_encode.cu keeps a plane of `steps` steps: (shared
+    bytes a CTA, large, device scratch bytes a block). A plane fits when
+    its keys (a byte each, two past 256 entries a read) and every chunk's
+    counts (i32) and fences (u16) take at most PE_SMEM_MAX; a large plane
+    keeps counts and fences in device scratch and needs shared memory
+    only for a window of chunks' fences (at least one chunk)."""
+    R, L = spec.reads, spec.lanes
+    nc = len(wide.chunk_schedule(steps))
+    kc = sum(spec.rows[r] * spec.alphabets[r] for r in range(R))
+    kf = sum(spec.rows[r] * (spec.alphabets[r] + 1) for r in range(R))
+    maxkey = max(spec.rows[r] * spec.alphabets[r] for r in range(R))
+    keys = _align16(steps * L * R * (2 if maxkey > 256 else 1))
+    tables = _align16(nc * kc * 4) + _align16(nc * kf * 2)
+    if maxkey <= 1 << 16 and keys + tables <= PE_SMEM_MAX:
+        return keys + tables, False, 0
+    if 2 * kf > PE_SMEM_MAX:
+        raise ValueError(f"plane_encode: one chunk's fences ({2 * kf} bytes) pass shared memory")
+    return min(_align16(nc * kf * 2), PE_SMEM_MAX), True, tables
+
+
+def _check_plane(args):
+    """plane_encode's argument checks for one plane's (syms, rows, n_sym,
+    plane_idx, steps, prior); returns them with rows and prior as tuples."""
+    syms, rows, n_sym, plane_idx, steps, prior = args
     spec = wide.PLANES[plane_idx]
     L, R = spec.lanes, spec.reads
-    prior = (None,) * R if prior is None else prior
+    prior = (None,) * R if prior is None else tuple(prior)
     rows = tuple(rows)
     _build.check_cuda("plane_encode", *syms, *rows, n_sym, *prior)
     B = syms[0].shape[0]
     dtypes = {s.dtype for s in syms}
     if (len(syms) != R or len(rows) != R or len(prior) != R or len(dtypes) != 1
             or not dtypes <= {torch.uint8, torch.int32}
+            or not 1 <= R <= PE_MAX_READS or not 1 <= L <= PE_MAX_LANES
+            or steps < 0 or steps * L * R >= 1 << 31
             or any(s.shape != (B, steps * L) for s in syms)
             or any(w is not None and (w.shape != (B, steps * L) or w.dtype != torch.int32)
                    for w in rows)
@@ -119,30 +148,104 @@ def plane_encode(syms, rows, n_sym, plane_idx: int, steps: int, prior=None):
                                       or p.dtype != torch.int32) for r, p in enumerate(prior))
             or n_sym.shape != (B,) or n_sym.dtype != torch.int32):
         raise ValueError("plane_encode: per read [B, steps*L] uint8 or int32 symbols, int32 "
-                         "rows or None, int32 [rows, alph] priors or None; n_sym [B] int32")
-    dev = syms[0].device
-    desc = torch.tensor(
-        [[s.data_ptr(), 0 if w is None else w.data_ptr(), 0 if p is None else p.data_ptr(),
-          spec.alphabets[r], spec.rows[r]]
-         for r, (s, w, p) in enumerate(zip(syms, rows, prior))],
-        dtype=torch.int64, device=dev)
-    sched = _schedule_tensor(steps, dev)
-    K = steps * R * L
-    span = torch.empty(B, K, dtype=torch.int32, device=dev)
-    seeds = torch.empty(B, L, dtype=torch.int32, device=dev)
-    pairs = torch.empty(B, K, dtype=torch.int32, device=dev)
-    mask = torch.empty(B, K, dtype=torch.bool, device=dev)
-    smem = 4 * sum(spec.rows[r] * (3 * spec.alphabets[r] + 1) for r in range(R))
-    fn = _build.entry("plane_encode", "nlzm_plane_encode", 7, 7)
-    _build.launch(fn, [desc.data_ptr(), n_sym.data_ptr(), sched.data_ptr(), span.data_ptr(),
-                       seeds.data_ptr(), pairs.data_ptr(), mask.data_ptr()],
-                  [B, L, R, steps, len(wide.chunk_schedule(steps)),
-                   int(syms[0].dtype == torch.uint8), smem], dev)
+                         "rows or None, int32 [rows, alph] priors or None; n_sym [B] int32; "
+                         f"at most {PE_MAX_READS} reads and {PE_MAX_LANES} lanes")
+    return syms, rows, n_sym, plane_idx, steps, prior
+
+
+def launch_plan(shapes):
+    """csrc/plane_encode.cu's grid for planes given as (spec, steps, B):
+    ([(plane, first CTA, large, scratch offset)] in launch order, the
+    launch's shared bytes a CTA, the scratch bytes). A CTA a (block,
+    plane); the planes with the longest chains (steps x reads) first."""
+    order = sorted(range(len(shapes)), key=lambda i: -shapes[i][1] * shapes[i][0].reads)
+    plan, cta, smem, scratch = [], 0, 0, 0
+    for i in order:
+        spec, steps, B = shapes[i]
+        need, large, per_block = plane_layout(spec, steps)
+        plan.append((i, cta, large, scratch))
+        cta += B
+        smem = max(smem, need)
+        scratch += B * per_block
+    return plan, smem, scratch
+
+
+def _launch_planes(planes):
+    """One launch of csrc/plane_encode.cu for checked planes; returns their
+    (seeds, pairs, mask) in the given order, pieces of one int32 and one
+    bool buffer (each 16-element, so 16-byte, aligned). The kernel reads
+    each plane's 51 int64 fields (csrc/plane_encode.cu PE_FIELDS) from the
+    host."""
+    dev = planes[0][0][0].device
+    if any(p[0][0].device != dev for p in planes):
+        raise ValueError("plane_encode_planes: every plane on one device")
+    plan, smem, scratch_bytes = launch_plan(
+        [(wide.PLANES[p[3]], p[4], p[2].shape[0]) for p in planes])
+    shapes, n32, n8 = [], [], []  # per plane (B, L, K); the buffers' pieces
+    for p in planes:
+        spec = wide.PLANES[p[3]]
+        B, L = p[2].shape[0], spec.lanes
+        K = p[4] * spec.reads * L
+        shapes.append((B, L, K))
+        n32 += [B * L, _align16(B * L) - B * L, B * K, _align16(B * K) - B * K]
+        n8 += [B * K, _align16(B * K) - B * K]
+    ints = torch.empty(sum(n32), dtype=torch.int32, device=dev).split(n32)
+    flags = torch.empty(sum(n8), dtype=torch.bool, device=dev).split(n8)
+    outs = [(ints[4 * i].view(B, L), ints[4 * i + 2].view(B, K), flags[2 * i].view(B, K))
+            for i, (B, L, K) in enumerate(shapes)]
+    fields = []
+    for i, _, large, offset in plan:
+        syms, rows, n_sym, plane_idx, steps, prior = planes[i]
+        spec = wide.PLANES[plane_idx]
+        pad = [0] * (8 - spec.reads)
+        fields.append([s.data_ptr() for s in syms] + pad
+                      + [0 if w is None else w.data_ptr() for w in rows] + pad
+                      + [0 if q is None else q.data_ptr() for q in prior] + pad
+                      + list(spec.alphabets) + pad + list(spec.rows) + pad
+                      + [t.data_ptr() for t in (*outs[i], n_sym)]
+                      + [n_sym.shape[0], spec.lanes, spec.reads, steps,
+                         int(syms[0].dtype == torch.uint8), int(large), offset])
+    fields = np.array(fields, np.int64)
+    scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=dev) if scratch_bytes else None
+    fn = _build.entry("plane_encode", "nlzm_plane_encode", 2, 2)
+    _build.launch(fn, [fields.ctypes.data, 0 if scratch is None else scratch.data_ptr()],
+                  [len(planes), smem], dev)
     plane_encode.launches += 1
-    return seeds, pairs, mask
+    return outs
+
+
+def plane_encode(syms, rows, n_sym, plane_idx: int, steps: int, prior=None):
+    """Encode one plane for all blocks.
+
+    syms: per read r, [B, steps * L] symbols (uint8 or int32, one dtype);
+    rows: per read r, [B, steps * L] int32 context rows, or None for row 0;
+    n_sym [B] int32 symbol counts; prior: None, or per read [rows, alph]
+    int32 warm-start counts (u16 values, as a container holds them).
+    Returns (seeds [B, L] int32 holding the u32 final lane states, pairs
+    [B, steps * R * L] int32 renorm pair values, mask [B, steps * R * L]
+    bool emission mask), in decode order.
+    """
+    if syms[0].device.type == "cpu":
+        return plane_encode_ref(syms, rows, n_sym, plane_idx, steps, prior)
+    return _launch_planes([_check_plane((syms, rows, n_sym, plane_idx, steps, prior))])[0]
 
 
 plane_encode.launches = 0
+
+
+def plane_encode_planes(staged):
+    """Encode several planes of one batch (stage_plane's argument tuples,
+    at most five, one device) in one launch; returns their (seeds, pairs,
+    mask) triples in order. Counted in plane_encode.launches. The plain
+    version (CPU tensors) is plane_encode_ref on each plane."""
+    staged = list(staged)
+    if not 1 <= len(staged) <= wide.N_PLANES or any(len(a) != 6 for a in staged):
+        raise ValueError(f"plane_encode_planes: 1 to {wide.N_PLANES} planes of plane_encode "
+                         f"arguments")
+    devs = {a[0][0].device.type for a in staged}
+    if devs == {"cpu"}:
+        return [plane_encode_ref(*a) for a in staged]
+    return _launch_planes([_check_plane(a) for a in staged])
 
 
 # ------------------------------------------------------------ entry points
@@ -193,10 +296,10 @@ def plane_streams(spec, steps: int, seeds, pairs, mask):
 def encode_planes_device(batched, priors=None, *, device="cuda"):
     """Every plane's encode on `device`; returns per-plane (streams
     list[bytes], offsets [B, NC]) lists."""
+    staged = [stage_plane(batched, priors, i, device) for i in range(wide.N_PLANES)]
     all_streams, all_offsets = [], []
-    for i, spec in enumerate(wide.PLANES):
-        args = stage_plane(batched, priors, i, device)
-        streams, offsets = plane_streams(spec, args[4], *plane_encode(*args))
+    for spec, args, out in zip(wide.PLANES, staged, plane_encode_planes(staged)):
+        streams, offsets = plane_streams(spec, args[4], *out)
         all_streams.append(streams)
         all_offsets.append(offsets)
     return all_streams, all_offsets
@@ -220,8 +323,9 @@ def encode_pipeline_device(data: bytes, block_size: int, hist_bits: int = 15, *,
                            device="cuda"):
     """Timed device-encode pipeline: native parse, depth lift and rep
     classification on the host (parse_s), then stage() - plane batching,
-    priors and upload, symbols as uint8 - and run(), the five plane
-    encodes on `device` with completion forced by a checksum fetch.
+    priors and upload, symbols as uint8 - and run(), the five planes'
+    encode on `device` (one launch) with completion forced by a checksum
+    fetch.
 
     Returns (run, parse_s, stage, staging_first_s): the end-to-end rate is
     parse_s + best_of(stage) + best_of(run); staging_first_s is the first
@@ -249,8 +353,7 @@ def encode_pipeline_device(data: bytes, block_size: int, hist_bits: int = 15, *,
 
     def run():
         acc = 0
-        for args in staged:
-            seeds, pairs, mask = plane_encode(*args)
+        for seeds, pairs, mask in plane_encode_planes(staged):
             acc = acc + (seeds.long() & _U32).sum() + (pairs.long() * mask).sum()
         return int(acc)
 

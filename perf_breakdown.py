@@ -130,7 +130,7 @@ def encode_stages(data: bytes, dev, cfg: dict) -> dict:
     """The wide device encode, stage by stage: parse_blocks_device (the
     parse's kernels, the copy back, lift_deep, repify), then
     encode_wide_blocks_device (plane batching, priors, upload, the five
-    plane_encode launches, the host assembly). cfg: chip_smoke.ENC_GREEDY
+    planes' plane_encode launch, the host assembly). cfg: chip_smoke.ENC_GREEDY
     or WIDE_OPT."""
     N, hist_bits = cfg["block_size"], chip_smoke.ENC_HIST_BITS
     c = Clock()
@@ -154,8 +154,8 @@ def encode_stages(data: bytes, dev, cfg: dict) -> dict:
     c.lap("priors (host)")
     args = [we.stage_plane(batched, priors, i, dev) for i in range(wide.N_PLANES)]
     c.lap("stage_plane (upload, 5 planes)")
-    outs = [we.plane_encode(*a) for a in args]
-    c.lap("plane_encode (5 launches)")
+    outs = we.plane_encode_planes(args)
+    c.lap("plane_encode_planes (one launch)")
     planes = [we.plane_streams(spec, a[4], *o) for spec, a, o in zip(wide.PLANES, args, outs)]
     c.lap("plane_streams (copy back, per-block streams)")
     payloads = wide.assemble_payloads(per_block, counts, [p[0] for p in planes],

@@ -255,6 +255,25 @@ def test_measure_costs_rounds_half_to_even():
     assert np.abs(np.asarray(jenc.measure_costs(*jargs))[:, 0] - [0, 2]).max() <= 1
 
 
+@pytest.mark.parametrize("T,B,sms", [(8192, 1024, 132), (32768, 245, 132), (8192, 256, 132),
+                                     (8192, 8, 132), (77, 3, 132), (4096, 16, 1), (0, 5, 132),
+                                     (1, 1, 132), (131072, 7, 132), (300, 1030, 16)])
+def test_cost_split_covers_every_step_once(T, B, sms):
+    """measure_costs' grid rule: every (block, step) in exactly one CTA's
+    range, ranges a whole number of 32-step passes, no more CTAs than one
+    wave of MC_CTAS_PER_SM an SM unless a group takes all T steps."""
+    groups, splits, rows = tenc.cost_split(T, B, sms)
+    assert groups == -(-B // tenc.MC_G) and rows % tenc.MC_ROWS == 0 and 1 <= splits <= 65535
+    assert splits == 1 or groups * splits <= sms * tenc.MC_CTAS_PER_SM
+    hits = np.zeros((B, T), np.int32)
+    for g in range(groups):
+        for s in range(splits):
+            b0, t0 = g * tenc.MC_G, s * rows
+            hits[b0 : min(B, b0 + tenc.MC_G), t0 : min(T, t0 + rows)] += 1
+    assert (hits == 1).all()
+    assert T == 0 or splits * rows - T < rows  # no empty range
+
+
 def test_opt_wrappers_refuse_other_devices():
     """Only CPU tensors take the plain versions; meta tensors raise, and no
     launch is counted."""

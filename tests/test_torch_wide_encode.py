@@ -168,6 +168,178 @@ def test_staged_planes_match_native(commands):
     assert twide.assemble_payloads(per_block, counts, streams, offsets) == want
 
 
+@pytest.mark.parametrize("with_priors", [False, True], ids=["no_priors", "priors"])
+def test_plane_encode_planes_matches_jax(commands, with_priors):
+    """The five-plane entry (its plain path on the CPU) against JAX's
+    plane_encode plane by plane; block 0 with no symbol, block 1 with
+    steps x L (every slot live, the padding's zeros included)."""
+    *_, batched, priors = commands
+    staged, want = [], []
+    for plane, spec in enumerate(jwide.PLANES):
+        syms, rows, counts, _ = batched[spec.name]
+        steps = syms[0].shape[1] // spec.lanes
+        counts = np.array(counts, np.int32)
+        counts[0], counts[1] = 0, steps * spec.lanes
+        prior = priors[spec.name] if with_priors else None
+        want.append(_jax_plane(syms, rows, counts, plane, steps, prior))
+        t = lambda a, dt: torch.from_numpy(np.array(a, dt))
+        staged.append((tuple(t(y, np.uint8) for y in syms),
+                       tuple(None if r is None else t(r, np.int32) for r in rows),
+                       t(counts, np.int32), plane, steps,
+                       None if prior is None else tuple(t(p, np.int32) for p in prior)))
+    got = tdev.plane_encode_planes(staged)
+    assert len(got) == len(want) == 5
+    for g, w in zip(got, want):
+        _assert_same(g, w)
+    assert tdev.plane_encode.launches == 0
+
+
+def test_plane_encode_planes_refuses_bad_arguments(commands):
+    """Argument checks raise ValueError; no launch is counted."""
+    *_, batched, priors = commands
+    staged = [tdev.stage_plane(batched, priors, i, "cpu") for i in range(5)]
+    meta = lambda a: tuple(None if x is None else torch.empty_like(x, device="meta") for x in a)
+    on_meta = lambda a: (meta(a[0]), meta(a[1]), torch.empty_like(a[2], device="meta"), a[3],
+                         a[4], None if a[5] is None else meta(a[5]))
+    bad = {
+        "no planes": [],
+        "six planes": staged + staged[:1],
+        "short tuple": [staged[0][:5]],
+        "mixed devices": staged[:4] + [on_meta(staged[4])],
+        "not cuda": [on_meta(a) for a in staged],
+        "int64 counts": [on_meta(staged[0])[:2] + (torch.empty(7, dtype=torch.int64,
+                                                               device="meta"),)
+                         + staged[0][3:]],
+    }
+    for name, planes in bad.items():
+        with pytest.raises(ValueError):
+            tdev.plane_encode_planes(planes)
+    assert tdev.plane_encode.launches == 0
+
+
+def test_plane_encode_launches_stay_zero_on_cpu(commands):
+    *_, batched, priors = commands
+    staged = [tdev.stage_plane(batched, priors, i, "cpu") for i in range(5)]
+    tdev.plane_encode(*staged[2])
+    tdev.plane_encode_planes(staged[2:4])
+    assert tdev.plane_encode.launches == 0
+
+
+def _shipping_steps():
+    """The plane steps of the 8 MB bench input at 32 KiB blocks
+    (chip_smoke.py's kernels_enc: tok 264, lit 224, len and dst 112, lex
+    24)."""
+    return dict(tok=264, lit=224, len=112, dst=112, lex=24)
+
+
+@pytest.mark.parametrize("case", ["shipping", "all_literal_128k", "four_row", "two_read",
+                                  "two_read_large", "empty", "past_smem"])
+def test_plane_layout_rule(case):
+    """plane_layout keeps every shipping plane in shared memory, sends a 128
+    KiB all-literal block's lit plane (2048 steps, 258 chunks) to the
+    large path (device scratch) and keeps its tok plane; a plane whose
+    one chunk of fences passes shared memory raises."""
+    specs = {p.name: p for p in twide.PLANES}
+    spec4 = twide.PlaneSpec("dst", 8, 1, (16,), (4,))
+    spec2 = twide.PlaneSpec("dst", 24, 2, (8, 16), (4, 32))
+    if case == "shipping":
+        for name, steps in _shipping_steps().items():
+            smem, large, scratch = tdev.plane_layout(specs[name], steps)
+            assert not large and scratch == 0 and 0 < smem <= 64 << 10
+        return
+    if case == "all_literal_128k":
+        steps = twide.padded_steps(131072, 64)
+        assert steps == 2048 and len(twide.chunk_schedule(steps)) == 258
+        smem, large, scratch = tdev.plane_layout(specs["lit"], steps)
+        assert large and smem == tdev._align16(258 * 257 * 2) <= tdev.PE_SMEM_MAX
+        assert scratch == 258 * 256 * 4 + tdev._align16(258 * 257 * 2)
+        smem, large, scratch = tdev.plane_layout(specs["tok"], steps)
+        assert not large and scratch == 0 and smem == 131072 + 258 * 4 * 4 + tdev._align16(
+            258 * 5 * 2) <= tdev.PE_SMEM_MAX
+        return
+    if case == "four_row":
+        smem, large, _ = tdev.plane_layout(spec4, 504)
+        nc = len(twide.chunk_schedule(504))
+        assert nc == 65 and not large
+        assert smem == 504 * 8 + nc * 64 * 4 + tdev._align16(nc * 68 * 2)
+        return
+    if case == "two_read":  # read 1 keys 32 x 16 = 512 entries: u16 keys
+        smem, large, _ = tdev.plane_layout(spec2, 176)
+        nc = len(twide.chunk_schedule(176))
+        assert not large and smem == 176 * 24 * 2 * 2 + nc * 544 * 4 + tdev._align16(
+            nc * 580 * 2)
+        return
+    if case == "two_read_large":  # chip_smoke.check_pe_large: 1672 steps, fences in 2 windows
+        smem, large, scratch = tdev.plane_layout(spec2, 1672)
+        nc = len(twide.chunk_schedule(1672))
+        assert nc == 211 and large and smem == tdev.PE_SMEM_MAX
+        assert scratch == nc * 544 * 4 + tdev._align16(nc * 580 * 2)
+        assert -(-nc // (smem // (2 * 580))) == 2
+        return
+    if case == "empty":
+        assert tdev.plane_layout(specs["lit"], 0) == (tdev._align16(256 * 4) + tdev._align16(
+            257 * 2), False, 0)
+        return
+    with pytest.raises(ValueError):
+        tdev.plane_layout(twide.PlaneSpec("dst", 8, 1, (16384,), (8,)), 8)
+
+
+def test_plane_encode_chunk_formulas_match_schedule():
+    """csrc/plane_encode.cu's chunk_of(s) (a step's chunk), chunk_start(k)
+    (a chunk's first step) and its chunk count, chunk_of(steps - 1) + 1,
+    copied here, agree with format/wide.py's chunk_schedule for steps 0 to
+    4096."""
+
+    def chunk_of(s):
+        return (s.bit_length() - 1 if s else 0) if s < 16 else (s >> 3) + 2
+
+    def chunk_start(k):
+        return (1 << k if k else 0) if k < 4 else 8 * k - 16
+
+    for steps in range(4097):
+        sched = twide.chunk_schedule(steps)
+        starts = np.concatenate([[0], np.cumsum(sched)]).astype(int)
+        assert (chunk_of(steps - 1) + 1 if steps else 1) == max(len(sched), 1)
+        assert [chunk_start(k) for k in range(len(sched) + 1)] == list(starts)
+    sched = twide.chunk_schedule(4096)
+    owner = np.repeat(np.arange(len(sched)), sched)
+    assert [chunk_of(s) for s in range(len(owner))] == list(owner)
+
+
+@pytest.mark.parametrize("case", ["shipping", "all_literal_128k", "two_specs"])
+def test_plane_launch_plan_covers_every_block_once(case):
+    """launch_plan gives every (plane, block) one CTA, the longest chains
+    first, disjoint scratch to the large planes, and shared bytes for the
+    largest in-memory plane."""
+    specs = list(twide.PLANES)
+    if case == "shipping":
+        shapes = [(s, _shipping_steps()[s.name], 245) for s in specs]
+    elif case == "all_literal_128k":
+        shapes = [(s, st, 8) for s, st in zip(specs, (2048, 2048, 24, 8, 16))]
+    else:
+        shapes = [(twide.PlaneSpec("dst", 24, 2, (8, 16), (4, 32)), 176, 3),
+                  (specs[1], 2048, 5), (specs[0], 8, 0), (specs[1], 2048, 2)]
+    plan, smem, scratch = tdev.launch_plan(shapes)
+    assert sorted(i for i, *_ in plan) == list(range(len(shapes)))
+    chains = [shapes[i][1] * shapes[i][0].reads for i, *_ in plan]
+    assert chains == sorted(chains, reverse=True)
+    owner, used = {}, []
+    for i, cta0, large, offset in plan:
+        spec, steps, B = shapes[i]
+        need, want_large, per_block = tdev.plane_layout(spec, steps)
+        assert large == want_large and need <= smem
+        for b in range(B):
+            assert cta0 + b not in owner
+            owner[cta0 + b] = (i, b)
+        if large:
+            used.append((offset, offset + B * per_block))
+    assert sorted(owner) == list(range(sum(B for *_, B in shapes)))
+    used.sort()
+    assert all(a[1] <= b[0] for a, b in zip(used, used[1:]))
+    assert scratch == sum(e - s for s, e in used)
+    assert (case != "shipping") == bool(used)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
