@@ -190,11 +190,13 @@ card and fails (nonzero exit, no result line) on anything wrong:
 23. kernels_plane_decode: the unfused plane decode (stage_plane,
     plane_scan) on the five wire planes of 4's buckets, with the
     container's priors, against its plain version, exact, with CUDA-event
-    times; its symbols must equal plane_scan_fused's over each block's
-    symbol count; a synthetic 4-row, 16-symbol spec and a 2-read dst spec
-    round-trip through plane_encode, plane_streams, stage_plane and
-    plane_scan, and hold the kernel to its plain version also under
-    hostile context rows;
+    times and the ten planes' device ms (torch.profiler); its symbols must
+    equal plane_scan_fused's over each block's symbol count; a synthetic
+    4-row, 16-symbol spec, a 2-read dst spec and a 128-lane spec (the
+    kernel's general path) round-trip through plane_encode, plane_streams,
+    stage_plane and plane_scan, and hold the kernel to its plain version
+    also under hostile context rows; the launch shapes (path, registers,
+    shared bytes, CTAs an SM, tables);
 24. kernels_research: huff_scan on the 8 MB at 32 KiB blocks, on a
     container with a truncated payload, on the NLZC container's prior (4 x
     32768), on 8 MB of random bytes at 32 KiB blocks, on 2 MiB at 128 KiB
@@ -234,6 +236,7 @@ import sys
 import tempfile
 import time
 import zlib
+from contextlib import contextmanager
 from pathlib import Path
 
 SHIP = dict(block_size=32768, dict_size=32768, depth_cap=8)  # bench.py primary config
@@ -328,8 +331,10 @@ FM_SHORT = 16  # bytes a lane compares alone; past them the warp searches togeth
 FM_SMEM_MAX_N = 32768
 MAX_MATCH = 264  # a match's longest length (encode_ops.MAX_MLEN)
 # synthetic plane specs (PlaneSpec fields) swapped in for dst: the 4-row
-# spec of tests/test_wide.py and a 2-read one, read 1 keyed by row0 * 8 + y
-SYNTH_PLANES = {"four_row": ("dst", 8, 1, (16,), (4,)), "two_read": ("dst", 24, 2, (8, 16), (4, 32))}
+# spec of tests/test_wide.py, a 2-read one, read 1 keyed by row0 * 8 + y,
+# and one wider than 64 lanes (csrc/plane_decode.cu's general path)
+SYNTH_PLANES = {"four_row": ("dst", 8, 1, (16,), (4,)), "two_read": ("dst", 24, 2, (8, 16), (4, 32)),
+                "wide_lanes": ("dst", 128, 1, (64,), (1,))}
 SYNTH_BLOCKS = 245
 PE_BIG_BLOCK = 131072  # parallel/blocks.py WIDE_MAX_BLOCK: plane_encode's large path
 # the synthetic two_read plane on plane_encode's large path: blocks, most
@@ -3545,12 +3550,13 @@ def pe_shape(staged) -> dict:
 
 
 def pe_timing(staged) -> dict:
-    """plane_encode_planes on `staged`: ms (CUDA events, mean of
+    """plane_encode_planes on `staged` through the device encodes' entry
+    (priors checked by stage_plane on the host): ms (CUDA events, mean of
     KERNEL_REPS calls), device ms a launch (torch.profiler), the bound
     and the launch shape."""
     from nlzm_tpu_torch.ops import wide_encode_dev as we
 
-    fn = lambda: we.plane_encode_planes(staged)
+    fn = lambda: we._plane_encode_planes(staged)
     return dict(ms=timed_mean(fn, KERNEL_REPS), device_ms=kernel_device_ms(fn, "plane_encode"),
                 bound_ms=bound(*pe_work(staged))[0], shape=pe_shape(staged))
 
@@ -3604,7 +3610,7 @@ def check_kernels_enc(tally: Tally, data: bytes, device):
             if [wide.PLANES[staged[i][3]].name for i, _, large, _ in plan if large] != ["lit"]:
                 raise AssertionError("kernels_enc: the 128 KiB all-literal lit plane did not "
                                      "take the large path")
-        tally.hold("plane_encode", lambda: we.plane_encode_planes(staged),
+        tally.hold("plane_encode", lambda: we._plane_encode_planes(staged),
                    lambda: [we.plane_encode_ref(*a) for a in staged], reps_plain=0,
                    work=pe_work(staged), timed=label == "ship")
         if label == "ship":
@@ -5581,26 +5587,22 @@ def plane_decode_work(args):
             + len(chunk_schedule(steps)) * B * table * 4)
 
 
-def check_plane_decode(tally: Tally, container: bytes, device):
-    """Phase 23: the unfused plane decode on the five wire planes of the
-    container's buckets (each plane at its own step count, with the
-    container's priors) against its plain version, and their symbols
-    against plane_scan_fused's; then the synthetic specs' round trips,
-    and the kernel against its plain version on them, also under hostile
-    context rows (untimed). Returns ({path: launches}, shape info)."""
+def pd_ship_jobs(container: bytes, device):
+    """The ten wire planes of the container's buckets as plane_scan
+    arguments (each plane at its own step count, with the container's
+    priors), each beside plane_scan_fused's symbols of the plane."""
     import numpy as np
     import torch
 
     from nlzm_tpu_torch.format import wide
     from nlzm_tpu_torch.ops import wide_decode as wd
-    from nlzm_tpu_torch.ops import wide_encode_dev as we
     from nlzm_tpu_torch.parallel.blocks import block_payloads
 
     put = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=device)
     info, buckets = stage(container, device)
     payloads = block_payloads(container, info)
     priors = wide.parse_priors(info.wide_priors)
-    jobs = []  # (plane_scan arguments, plane_scan_fused's symbols of the plane)
+    jobs = []
     for staged, idx in buckets:
         fused = wd.plane_scan_fused(staged["seeds_cat"], wd.stage_windows_of(staged),
                                     staged["n_sym"], staged["steps"], staged["priors"])
@@ -5613,9 +5615,135 @@ def check_plane_decode(tally: Tally, container: bytes, device):
             ctx = torch.zeros(len(idx), steps * spec.lanes, dtype=torch.int32, device=device)
             jobs.append(((seeds, wins, put(counts), ctx, p, steps,
                           tuple(put(a) for a in priors[spec.name])), fused[p]))
+    return jobs
+
+
+@contextmanager
+def dst_spec(spec):
+    """wide.PLANES with `spec` in place of dst (plane 4) inside the block."""
+    from nlzm_tpu_torch.format import wide
+
+    planes = wide.PLANES
+    wide.PLANES = planes[:4] + (spec,)
+    try:
+        yield
+    finally:
+        wide.PLANES = planes
+
+
+def pd_round_trip(fields, seed: int, device):
+    """A synthetic spec's symbols (synth_plane) through plane_encode,
+    plane_streams, stage_plane and plane_scan, inside dst_spec: (spec,
+    plane_scan's arguments, its symbols, the encoded symbols)."""
+    import numpy as np
+    import torch
+
+    from nlzm_tpu_torch.ops import wide_decode as wd
+    from nlzm_tpu_torch.ops import wide_encode_dev as we
+
+    put = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=device)
+    spec, counts, syms, rows, ctx, steps, prior = synth_plane(fields, seed)
+    pr = tuple(put(a) for a in prior)
+    with dst_spec(spec):
+        enc = we.plane_encode(tuple(put(a) for a in syms),
+                              tuple(None if r is None else put(r) for r in rows),
+                              put(counts), 4, steps, pr)
+        streams, offsets = we.plane_streams(spec, steps, *enc)
+        seeds, wins = wd.stage_plane(streams, list(offsets), 4, steps, device=device)
+        args = (seeds, wins, put(counts), put(ctx), 4, steps, pr)
+        return spec, args, wd.plane_scan(*args), syms
+
+
+PD_HOSTILE = (-1, -7, 4, 31, 32, 1 << 29, (1 << 29) + 3, 1 << 28, -(1 << 31))
+
+
+def hostile_rows(args, seed: int):
+    """plane_scan's arguments with ~30% of the context rows replaced by
+    PD_HOSTILE values (negative, past the table, large enough that row0 *
+    8 wraps in i32)."""
+    import numpy as np
+    import torch
+
+    ctx = args[3].cpu().numpy().copy()
+    rng = np.random.default_rng(seed)
+    hit = rng.random(ctx.shape) < 0.3
+    ctx[hit] = rng.choice(np.array(PD_HOSTILE), int(hit.sum()))
+    return args[:3] + (torch.as_tensor(ctx, device=args[3].device),) + args[4:]
+
+
+def pd_shape(args) -> dict:
+    """csrc/plane_decode.cu's launch for plane_scan's arguments on this card
+    (nlzm_pd_shape): the path and kernel variant, CTAs, threads, shared
+    bytes (dynamic and static), registers a thread, resident CTAs an SM,
+    waves, each read's table kind."""
+    import ctypes
+
+    import torch
+
+    from nlzm_tpu_torch import _build
+    from nlzm_tpu_torch.format.wide import PLANES
+    from nlzm_tpu_torch.ops import wide_decode as wd
+
+    seeds, wins, n_sym, ctx, idx, steps, prior = args
+    spec = PLANES[idx]
+    prior = (None,) * spec.reads if prior is None else prior
+    outs = [torch.empty(1, 16, dtype=torch.int32, device=seeds.device) for _ in prior]
+    fields = wd._pd_fields(seeds, wins, n_sym, ctx, spec, steps, prior, outs)
+    lay = wd.plane_decode_layout(spec, int(wins.shape[2]))
+    out = (ctypes.c_int * 6)()
+    st = _build.entry("plane_decode", "nlzm_pd_shape", 2, 0)(
+        fields.ctypes.data, ctypes.addressof(out), torch.cuda.current_device(), None)
+    if st:
+        raise RuntimeError(f"nlzm_pd_shape: CUDA error {st}")
+    variant, threads, static, regs, ctas, sms = out
+    B = seeds.shape[0]
+    kinds = {wd.PD_REG: "reg", wd.PD_BITMAP: "bitmap", wd.PD_SEARCH: "search"}
+    return dict(path="warp" if lay.warp else "general", variant=variant, ctas=B,
+                threads=threads, smem_bytes=lay.smem + static, registers=regs,
+                ctas_per_sm=ctas, waves=-(-B // (ctas * sms)) if ctas else None,
+                tables=[kinds[k] for k in lay.kinds])
+
+
+def calls_device_ms(fn, key: str, reps: int = KERNEL_REPS):
+    """Device ms a call of fn(): every launch of the kernels whose name
+    holds `key` in reps calls, summed, over reps (torch.profiler, one
+    session after one warm-up call; up to 3 sessions until one traces
+    any). None if none did."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        tot = sum((getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0))
+                  for e in prof.key_averages() if key in e.key and e.count)
+        if tot:
+            return tot / reps / 1e3
+    return None
+
+
+def check_plane_decode(tally: Tally, container: bytes, device):
+    """Phase 23: the unfused plane decode on the five wire planes of the
+    container's buckets (each plane at its own step count, with the
+    container's priors, through the entry without the prior check) against
+    its plain version, and their symbols against plane_scan_fused's; the
+    ten planes' device ms from one profiler session; then the synthetic
+    specs' round trips, and the kernel against its plain version on them,
+    also under hostile context rows (untimed). Returns ({path: launches},
+    shape info)."""
+    import numpy as np
+    import torch
+
+    from nlzm_tpu_torch.ops import wide_decode as wd
+
+    jobs = pd_ship_jobs(container, device)
     for args, _ in jobs:
-        tally.hold("plane_decode", lambda: wd.plane_scan(*args), lambda: wd.plane_scan_ref(*args),
-                   reps_plain=1, work=plane_decode_work(args))
+        tally.hold("plane_decode", lambda: wd._plane_scan(*args),
+                   lambda: wd.plane_scan_ref(*args), reps_plain=1, work=plane_decode_work(args))
     paths = {}
     ys, paths["plane_decode_ship"] = launched(
         "plane_decode_ship", ("plane_decode",), lambda: [wd.plane_scan(*a) for a, _ in jobs])
@@ -5624,44 +5752,26 @@ def check_plane_decode(tally: Tally, container: bytes, device):
         if not torch.equal(torch.where(live, y, 0), torch.where(live, fused_p[:, : y.shape[1]], 0)):
             raise AssertionError(f"kernels_plane_decode: plane {args[4]} differs from "
                                  f"plane_scan_fused's symbols")
+    ship_dev = calls_device_ms(lambda: [wd._plane_scan(*a) for a, _ in jobs], "plane_decode")
 
-    planes = wide.PLANES
-    hostile = np.array([-1, -7, 4, 31, 32, 1 << 29, (1 << 29) + 3, 1 << 28, -(1 << 31)])
     synth = {}
-    try:
-        for seed, (name, fields) in enumerate(SYNTH_PLANES.items()):
-            spec, counts, syms, rows, ctx, steps, prior = synth_plane(fields, seed)
-            wide.PLANES = planes[:4] + (spec,)
-            pr = tuple(put(a) for a in prior)
-
-            def round_trip():
-                enc = we.plane_encode(tuple(put(a) for a in syms),
-                                      tuple(None if r is None else put(r) for r in rows),
-                                      put(counts), 4, steps, pr)
-                streams, offsets = we.plane_streams(spec, steps, *enc)
-                seeds, wins = wd.stage_plane(streams, list(offsets), 4, steps, device=device)
-                return (seeds, wins, put(counts), put(ctx), 4, steps, pr), wd.plane_scan(
-                    seeds, wins, put(counts), put(ctx), 4, steps, pr)
-
-            (args, ys), paths[f"plane_roundtrip_{name}"] = launched(
-                f"plane_roundtrip {name}", ("plane_encode", "plane_decode"), round_trip)
-            if any(not np.array_equal(y.cpu().numpy(), a) for y, a in zip(ys, syms, strict=True)):
-                raise AssertionError(f"kernels_plane_decode: {name} did not round-trip")
+    for seed, (name, fields) in enumerate(SYNTH_PLANES.items()):
+        (spec, args, ys, syms), paths[f"plane_roundtrip_{name}"] = launched(
+            f"plane_roundtrip {name}", ("plane_encode", "plane_decode"),
+            lambda: pd_round_trip(fields, seed, device))
+        if any(not np.array_equal(y.cpu().numpy(), a) for y, a in zip(ys, syms, strict=True)):
+            raise AssertionError(f"kernels_plane_decode: {name} did not round-trip")
+        hargs = hostile_rows(args, seed)
+        with dst_spec(spec):
             tally.hold("plane_decode", lambda: wd.plane_scan(*args),
                        lambda: wd.plane_scan_ref(*args), timed=False)
-            bad = ctx.copy()
-            rng = np.random.default_rng(seed)
-            hit = rng.random(bad.shape) < 0.3
-            bad[hit] = rng.choice(hostile, int(hit.sum()))
-            hargs = args[:3] + (put(bad),) + args[4:]
             tally.hold("plane_decode", lambda: wd.plane_scan(*hargs),
                        lambda: wd.plane_scan_ref(*hargs), timed=False)
-            synth[name] = {"spec": fields, "blocks": SYNTH_BLOCKS, "steps": steps,
-                           "symbols": int(counts.sum())}
-    finally:
-        wide.PLANES = planes
-    return paths, {"buckets": [len(idx) for _, idx in buckets],
-                   "plane_steps": [a[5] for a, _ in jobs], "synthetic": synth}
+            synth[name] = {"spec": fields, "blocks": SYNTH_BLOCKS, "steps": args[5],
+                           "symbols": int(args[2].long().sum()), "shape": pd_shape(args)}
+    return paths, {"buckets": [a[0].shape[0] for a, _ in jobs[::5]],
+                   "plane_steps": [a[5] for a, _ in jobs], "ship_device_ms": ship_dev,
+                   "ship_shapes": [pd_shape(a) for a, _ in jobs[:5]], "synthetic": synth}
 
 
 def ppm_rows(args, out):
@@ -6035,7 +6145,9 @@ def main() -> int:
     emit({"phase": "kernels_plane_decode", "ok": True, **plane_shape,
           "kernels": tally.summary(("plane_decode",)), "launches": plane_launches,
           "timing": f"CUDA events, mean of {KERNEL_REPS} back-to-back calls, summed over the "
-                    f"ten wire planes (two buckets); plain: 1 call (its comparison call past 1 s)",
+                    f"ten wire planes (two buckets); ship_device_ms: torch.profiler, every "
+                    f"plane_decode launch of {KERNEL_REPS} calls of the ten planes summed, a call; "
+                    f"plain: 1 call (its comparison call past 1 s)",
           "card": card})
     research_launches = run_research(tally, corpus, "cuda", card)
 

@@ -90,27 +90,6 @@ def old_measure_costs(fn, mc):
     return costs
 
 
-def device_ms(fn, key: str, reps: int = cs.KERNEL_REPS):
-    """Device ms a call of fn(): every kernel whose name holds `key`, all
-    its launches in reps calls summed over reps (torch.profiler), after one
-    warm-up call; up to 3 profiles until one traces any. None if none did."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        tot = sum((getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0))
-                  for e in prof.key_averages() if key in e.key and e.count)
-        if tot:
-            return tot / reps / 1e3
-    return None
-
-
 def compare(label: str, calls: dict, plain, key: str, extra=None) -> dict:
     """Hold each build's call of `calls` ({name: fn}) against plain(), then
     time them in turns, with CUDA events and on the device."""
@@ -130,7 +109,7 @@ def compare(label: str, calls: dict, plain, key: str, extra=None) -> dict:
         calls[name]()
         times[name].append(cs.timed_mean(calls[name], cs.KERNEL_REPS))
     for name in order:
-        dev[name].append(device_ms(calls[name], key))
+        dev[name].append(cs.calls_device_ms(calls[name], key))
     line.update({f"{n}_ms": t for n, t in times.items()})
     line.update({f"{n}_device_ms": t for n, t in dev.items()})
     if extra:
@@ -167,7 +146,7 @@ def main() -> int:
     for label, staged in pe_inputs:
         calls = {"other": lambda: [old_plane_encode(old_pe["nlzm_plane_encode"], a)
                                    for a in staged],
-                 "this": lambda: we.plane_encode_planes(staged)}
+                 "this": lambda: we._plane_encode_planes(staged)}
         extra = lambda: {"bound_ms": cs.bound(*cs.pe_work(staged))[0],
                          "shape": cs.pe_shape(staged),
                          "steps": [a[4] for a in staged],
@@ -202,7 +181,7 @@ def main() -> int:
                                     for s, p, m in outs))
     runs = {"other": lambda: checksum([old_plane_encode(old_pe["nlzm_plane_encode"], a)
                                        for a in staged]),
-            "this": lambda: checksum(we.plane_encode_planes(staged))}
+            "this": lambda: checksum(we._plane_encode_planes(staged))}
     best = {name: [] for name in runs}
     for name in [*runs, *reversed(runs)]:
         runs[name]()

@@ -28,6 +28,7 @@ versions mask with 0xFFFF), lane seeds as int32 holding u32 bits.
 """
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -157,19 +158,21 @@ def _uniform_fences(B: int, nsym: int, device):
 PRIOR_MAX = 0xFFFF  # a container's priors are u16 (format/wide.py parse_priors)
 
 
-def _check_priors(priors) -> None:
-    """Raise ValueError unless every prior value is in 0..65535 (one
-    torch.aminmax). A container carries its priors as u16, and the
-    kernel's 32-bit rebuild holds for that domain; past it JAX's int32
-    products and sums wrap and tot + 1 can reach 0, so there is no single
-    answer to match."""
+def _check_priors(priors, name: str = "plane_scan_fused") -> None:
+    """Raise ValueError, naming the caller `name`, unless every prior value
+    is in 0..65535 (one torch.aminmax; None entries skipped). A container
+    carries its priors as u16, and the kernels' 32-bit rebuild holds for
+    that domain; past it JAX's int32 products and sums wrap and tot + 1
+    can reach 0, so there is no single answer to match. A CUDA tensor
+    costs one copy back; numpy arrays are checked on the host."""
     if priors is None:
         return
-    flat = torch.cat([torch.as_tensor(a).reshape(-1) for a in priors])
+    parts = [torch.as_tensor(a).reshape(-1).long() for a in priors if a is not None]
+    flat = torch.cat(parts) if parts else torch.zeros(0)
     if flat.numel():
         lo, hi = torch.aminmax(flat)
         if bool((lo < 0) | (hi > PRIOR_MAX)):  # one copy back
-            raise ValueError("plane_scan_fused: prior values must be in 0..65535")
+            raise ValueError(f"{name}: prior values must be in 0..65535")
 
 
 def _cat_windows(wins):
@@ -440,8 +443,119 @@ def plane_scan_ref(seeds, wins, n_sym, ctx, plane_idx: int, steps: int, prior=No
     return tuple(o.reshape(B, steps * L) for o in outs)
 
 
-PLANE_MAX_READS = 8  # csrc/plane_decode.cu's descriptor slots
+PLANE_MAX_READS = 8  # csrc/plane_decode.cu's read slots
+PLANE_MAX_LANES = 1024
 PLANE_MAX_SMEM = 225 << 10  # dynamic shared memory a CTA may take, below the H100's 227 KiB
+# csrc/plane_decode.cu's warp path: lanes at most, ring slots, steps a chunk
+# at most, the bytes of a row's fence bitmap (512 words and their counts,
+# two words of padding every 16) and the table kinds
+PD_WARP_LANES = 64
+PD_RING = 4
+PD_MAX_CLEN = wide.CHUNK_STEPS
+PD_TB_BYTES = 8 * (512 + 64)
+PD_REG, PD_BITMAP, PD_SEARCH = 0, 1, 2
+PD_FIELDS = 92  # int64 fields of a launch (csrc/plane_decode.cu)
+
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def _row_entries(a: int) -> int:
+    """Entries of a one-row read's counts and spans: 32 lanes of
+    ceil(a / 32) entries rounded up to a power of two (the one-row
+    kernel's vector loads and stores)."""
+    return 32 << (-(-a // 32) - 1).bit_length()
+
+
+class PlaneLayout(NamedTuple):
+    """Where csrc/plane_decode.cu decodes a plane. warp: the warp path
+    (else the general, CTA-wide one); lpt: lanes a thread; smem: dynamic
+    shared bytes a CTA; kinds: per read PD_REG, PD_BITMAP or PD_SEARCH;
+    tables: per read the byte offsets of its carries, counts and tables
+    and a table row's bytes; ncopy: pairs of a chunk's window row copied
+    to the ring, slot: ints a ring slot; ctx_at: the context rows' ring (0
+    on the general path), -1 where no read keys on the context rows."""
+    warp: bool
+    lpt: int
+    smem: int
+    kinds: tuple
+    tables: tuple
+    ncopy: int
+    slot: int
+    ctx_at: int
+
+
+@functools.lru_cache(maxsize=256)
+def plane_decode_layout(spec, WH: int) -> PlaneLayout:
+    """csrc/plane_decode.cu's layout for a plane spec and window width.
+
+    The general path's tables (int fences, carries and counts, rows * (3
+    alph + 1) ints a read) must fit PLANE_MAX_SMEM, with at most
+    PLANE_MAX_READS reads and PLANE_MAX_LANES lanes; else ValueError. A
+    plane of at most PD_WARP_LANES lanes whose alphabets are at most 2^14
+    takes the warp path if its ring, context-row ring and tables fit
+    PLANE_MAX_SMEM. Its reads: one read of one row and at most 8 symbols
+    keeps its fences in registers (PD_REG); a one-row read a fence bitmap
+    (PD_BITMAP); a multi-row read u16 fences, searched (PD_SEARCH)."""
+    R, L = spec.reads, spec.lanes
+    general = 4 * sum(spec.rows[r] * (3 * spec.alphabets[r] + 1) for r in range(R))
+    if R > PLANE_MAX_READS or L > PLANE_MAX_LANES or general > PLANE_MAX_SMEM:
+        raise ValueError(f"plane_scan: {R} reads, {L} lanes and {general} bytes of tables "
+                         f"exceed the kernel's {PLANE_MAX_READS} reads, {PLANE_MAX_LANES} "
+                         f"lanes, {PLANE_MAX_SMEM} bytes")
+    keyed = spec.rows[0] > 1 or (spec.name == "dst" and max(spec.rows[1:], default=1) > 1)
+    ncopy = min(WH, PD_MAX_CLEN * R * L)
+    slot = -(-ncopy // 4) * 4
+    at = PD_RING * slot * 4
+    ctx_at = at if keyed else -1
+    at += PD_RING * PD_MAX_CLEN * L * 4 if keyed else 0
+    kinds, tables = [], []
+    for r in range(R):
+        a, n = spec.alphabets[r], spec.rows[r]
+        if R == 1 and n == 1 and a <= 8:
+            kinds.append(PD_REG)
+            tables.append((0, 0, 0, 0))
+            continue
+        if n == 1:
+            kinds.append(PD_BITMAP)
+            entries = _row_entries(a)
+            stride = PD_TB_BYTES + 4 * entries
+        else:  # carries and counts at an odd stride a row
+            kinds.append(PD_SEARCH)
+            entries = n * (a | 1)
+            stride = 2 * (a + 1)
+        car = at
+        cnt = car + _align16(4 * entries)
+        tab = cnt + _align16(4 * entries)
+        tables.append((car, cnt, tab, stride))
+        at = tab + _align16(n * stride)
+    lpt = 1 if L <= 32 else 2
+    if L <= PD_WARP_LANES and max(spec.alphabets) <= CDF_SCALE_TOTAL and at <= PLANE_MAX_SMEM:
+        return PlaneLayout(True, lpt, at, tuple(kinds), tuple(tables), ncopy, slot, ctx_at)
+    return PlaneLayout(False, 1, general, (), (), ncopy, slot, 0 if keyed else -1)
+
+
+def _pd_fields(seeds, wins, n_sym, ctx, spec, steps: int, prior, outs):
+    """csrc/plane_decode.cu's PD_FIELDS int64 launch fields (read on the
+    host, passed by value): per read its prior and output pointers, spec
+    and layout; the input pointers, the sizes and plane_decode_layout."""
+    B, L, R = seeds.shape[0], spec.lanes, spec.reads
+    WH = int(wins.shape[2])
+    lay = plane_decode_layout(spec, WH)
+    fields = np.zeros(PD_FIELDS, np.int64)
+    for r, (p, o) in enumerate(zip(prior, outs)):
+        tabs = lay.tables[r] if lay.warp else (0, 0, 0, 0)
+        fields[9 * r: 9 * r + 9] = (0 if p is None else p.data_ptr(), o.data_ptr(),
+                                    spec.alphabets[r], spec.rows[r],
+                                    lay.kinds[r] if lay.warp else 0, *tabs)
+    aligned = lambda *ts: all(t.data_ptr() % 16 == 0 for t in ts)
+    fields[9 * PLANE_MAX_READS:] = (
+        seeds.data_ptr(), wins.data_ptr(), n_sym.data_ptr(), ctx.data_ptr(),
+        B, L, R, steps, int(wins.shape[0]), WH, int(spec.name == "dst"), lay.ncopy, lay.slot,
+        lay.ctx_at, int(WH % 4 == 0 and aligned(wins)), int(L % 2 == 0 and aligned(ctx)),
+        int(L % 4 == 0 and aligned(*outs)), int(lay.warp), lay.lpt, lay.smem)
+    return fields
 
 
 def plane_scan(seeds, wins, n_sym, ctx, plane_idx: int, steps: int, prior=None):
@@ -453,44 +567,47 @@ def plane_scan(seeds, wins, n_sym, ctx, plane_idx: int, steps: int, prior=None):
     [B, steps * L] int32 context rows of the first read (reads after it
     key their row on the previous read's symbol: row0 * 8 + y for a plane
     named "dst", else y; single-row reads ignore the row); prior: None,
-    or one [rows, alph] int32 tensor of warm-start counts per read.
-    Returns per read a [B, steps * L] int32 symbol array; a lane past
-    n_sym emits 0, a row outside [0, rows) decodes as alph from an
-    all-zero table row.
+    or one [rows, alph] int32 tensor of warm-start counts per read, each
+    value in 0..65535 (else ValueError). Returns per read a [B, steps * L]
+    int32 symbol array; a lane past n_sym emits 0, a row outside [0, rows)
+    decodes as alph from an all-zero table row.
     """
     spec = wide.PLANES[plane_idx]
+    if prior is not None and (len(prior) != spec.reads or any(p is None for p in prior)):
+        raise ValueError(f"plane_scan: prior is None or one tensor for each of the "
+                         f"{spec.reads} reads")
+    _check_priors(prior, "plane_scan")
+    return _plane_scan(seeds, wins, n_sym, ctx, plane_idx, steps, prior)
+
+
+def _plane_scan(seeds, wins, n_sym, ctx, plane_idx: int, steps: int, prior=None):
+    """plane_scan without the prior checks: for priors in range by
+    construction (a container's u16 blob), with no copy back."""
+    spec = wide.PLANES[plane_idx]
     L, R = spec.lanes, spec.reads
-    if prior is not None and (len(prior) != R or any(p is None for p in prior)):
-        raise ValueError(f"plane_scan: prior is None or one tensor for each of the {R} reads")
     if seeds.device.type == "cpu":
         return plane_scan_ref(seeds, wins, n_sym, ctx, plane_idx, steps, prior)
     prior = (None,) * R if prior is None else tuple(prior)
     _build.check_cuda("plane_scan", seeds, wins, n_sym, ctx, *prior)
     B = seeds.shape[0]
-    NC = len(chunk_schedule(steps))
+    sched = chunk_schedule(steps)
+    NC = len(sched)
     if (seeds.dtype != torch.int32 or seeds.shape != (B, L) or wins.dtype != torch.int32
             or wins.dim() != 3 or wins.shape[:2] != (NC, B) or wins.shape[2] < 1
             or n_sym.dtype != torch.int32 or n_sym.shape != (B,)
-            or ctx.dtype != torch.int32 or ctx.shape != (B, steps * L)
+            or ctx.dtype != torch.int32 or ctx.shape != (B, steps * L) or sum(sched) != steps
+            or len(prior) != R
             or any(p is not None and (p.dtype != torch.int32
                                       or p.numel() != spec.rows[r] * spec.alphabets[r])
                    for r, p in enumerate(prior))):
         raise ValueError("plane_scan: seeds [B,L] int32, wins [NC,B,WH] int32, n_sym [B] int32, "
-                         "ctx [B,steps*L] int32, prior int32 [rows,alph] per read")
-    smem = 4 * sum(spec.rows[r] * (3 * spec.alphabets[r] + 1) for r in range(R))
-    if R > PLANE_MAX_READS or L > 1024 or smem > PLANE_MAX_SMEM:
-        raise ValueError(f"plane_scan: {R} reads, {L} lanes and {smem} bytes of tables exceed "
-                         f"the kernel's {PLANE_MAX_READS} reads, 1024 lanes, {PLANE_MAX_SMEM} bytes")
+                         "ctx [B,steps*L] int32, steps = sum(chunk_schedule(steps)), prior int32 "
+                         "[rows,alph] per read")
     dev = seeds.device
     outs = [torch.empty(B, steps * L, dtype=torch.int32, device=dev) for _ in range(R)]
-    desc = torch.tensor(
-        [[0 if p is None else p.data_ptr(), o.data_ptr(), spec.alphabets[r], spec.rows[r]]
-         for r, (p, o) in enumerate(zip(prior, outs))],
-        dtype=torch.int64, device=dev)
-    fn = _build.entry("plane_decode", "nlzm_plane_decode", 6, 8)
-    _build.launch(fn, [desc.data_ptr(), seeds.data_ptr(), wins.data_ptr(), n_sym.data_ptr(),
-                       ctx.data_ptr(), _schedule_tensor(steps, dev).data_ptr()],
-                  [B, L, R, steps, NC, wins.shape[2], int(spec.name == "dst"), smem], dev)
+    fields = _pd_fields(seeds, wins, n_sym, ctx, spec, steps, prior, outs)
+    _build.launch(_build.entry("plane_decode", "nlzm_plane_decode", 1, 0), [fields.ctypes.data],
+                  [], dev)
     plane_scan.launches += 1
     return tuple(outs)
 

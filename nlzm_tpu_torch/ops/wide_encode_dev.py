@@ -25,7 +25,7 @@ import torch
 from .. import _build, native
 from ..constants import CDF_SCALE_BITS, CDF_SCALE_TOTAL
 from ..format import wide
-from .wide_decode import _build_cdf
+from .wide_decode import _build_cdf, _check_priors
 
 _U32 = 0xFFFFFFFF
 
@@ -177,8 +177,6 @@ def _launch_planes(planes):
     each plane's 51 int64 fields (csrc/plane_encode.cu PE_FIELDS) from the
     host."""
     dev = planes[0][0][0].device
-    if any(p[0][0].device != dev for p in planes):
-        raise ValueError("plane_encode_planes: every plane on one device")
     plan, smem, scratch_bytes = launch_plan(
         [(wide.PLANES[p[3]], p[4], p[2].shape[0]) for p in planes])
     shapes, n32, n8 = [], [], []  # per plane (B, L, K); the buffers' pieces
@@ -220,14 +218,17 @@ def plane_encode(syms, rows, n_sym, plane_idx: int, steps: int, prior=None):
     syms: per read r, [B, steps * L] symbols (uint8 or int32, one dtype);
     rows: per read r, [B, steps * L] int32 context rows, or None for row 0;
     n_sym [B] int32 symbol counts; prior: None, or per read [rows, alph]
-    int32 warm-start counts (u16 values, as a container holds them).
-    Returns (seeds [B, L] int32 holding the u32 final lane states, pairs
-    [B, steps * R * L] int32 renorm pair values, mask [B, steps * R * L]
-    bool emission mask), in decode order.
+    int32 warm-start counts, each value in 0..65535 as a container holds
+    them (else ValueError). Returns (seeds [B, L] int32 holding the u32
+    final lane states, pairs [B, steps * R * L] int32 renorm pair values,
+    mask [B, steps * R * L] bool emission mask), in decode order.
     """
     if syms[0].device.type == "cpu":
+        _check_priors(prior, "plane_encode")
         return plane_encode_ref(syms, rows, n_sym, plane_idx, steps, prior)
-    return _launch_planes([_check_plane((syms, rows, n_sym, plane_idx, steps, prior))])[0]
+    plane = _check_plane((syms, rows, n_sym, plane_idx, steps, prior))
+    _check_priors(plane[5], "plane_encode")
+    return _launch_planes([plane])[0]
 
 
 plane_encode.launches = 0
@@ -237,15 +238,31 @@ def plane_encode_planes(staged):
     """Encode several planes of one batch (stage_plane's argument tuples,
     at most five, one device) in one launch; returns their (seeds, pairs,
     mask) triples in order. Counted in plane_encode.launches. The plain
-    version (CPU tensors) is plane_encode_ref on each plane."""
+    version (CPU tensors) is plane_encode_ref on each plane. A prior value
+    outside 0..65535 raises ValueError (one copy back for CUDA priors)."""
+    return _plane_encode_planes(staged, check_priors=True)
+
+
+def _plane_encode_planes(staged, check_priors: bool = False):
+    """plane_encode_planes; without check_priors, for planes whose priors
+    stage_plane checked on the host before their upload (the wide device
+    encodes: no device-to-host copy)."""
     staged = list(staged)
     if not 1 <= len(staged) <= wide.N_PLANES or any(len(a) != 6 for a in staged):
         raise ValueError(f"plane_encode_planes: 1 to {wide.N_PLANES} planes of plane_encode "
                          f"arguments")
+    priors = lambda planes: [p for a in planes if a[5] is not None for p in a[5]]
     devs = {a[0][0].device.type for a in staged}
     if devs == {"cpu"}:
+        if check_priors:
+            _check_priors(priors(staged), "plane_encode_planes")
         return [plane_encode_ref(*a) for a in staged]
-    return _launch_planes([_check_plane(a) for a in staged])
+    planes = [_check_plane(a) for a in staged]
+    if len({p[0][0].device for p in planes}) != 1:
+        raise ValueError("plane_encode_planes: every plane on one device")
+    if check_priors:
+        _check_priors(priors(planes), "plane_encode_planes")
+    return _launch_planes(planes)
 
 
 # ------------------------------------------------------------ entry points
@@ -260,8 +277,9 @@ def stage_plane(batched, priors, plane_idx: int, device):
     steps = syms_p[0].shape[1] // spec.lanes
     prior = None
     if priors is not None:
-        prior = tuple(torch.as_tensor(np.asarray(priors[spec.name][r], np.int32), device=dev)
-                      for r in range(spec.reads))
+        host = [np.asarray(priors[spec.name][r]) for r in range(spec.reads)]
+        _check_priors(host, "stage_plane")  # on the host, before the upload
+        prior = tuple(torch.as_tensor(a.astype(np.int32), device=dev) for a in host)
     sym_dtype = np.uint8 if max(spec.alphabets) <= 256 else np.int32  # a byte where it fits
     return (
         tuple(torch.as_tensor(np.asarray(s).astype(sym_dtype), device=dev) for s in syms_p),
@@ -298,7 +316,7 @@ def encode_planes_device(batched, priors=None, *, device="cuda"):
     list[bytes], offsets [B, NC]) lists."""
     staged = [stage_plane(batched, priors, i, device) for i in range(wide.N_PLANES)]
     all_streams, all_offsets = [], []
-    for spec, args, out in zip(wide.PLANES, staged, plane_encode_planes(staged)):
+    for spec, args, out in zip(wide.PLANES, staged, _plane_encode_planes(staged)):
         streams, offsets = plane_streams(spec, args[4], *out)
         all_streams.append(streams)
         all_offsets.append(offsets)
@@ -353,7 +371,7 @@ def encode_pipeline_device(data: bytes, block_size: int, hist_bits: int = 15, *,
 
     def run():
         acc = 0
-        for seeds, pairs, mask in plane_encode_planes(staged):
+        for seeds, pairs, mask in _plane_encode_planes(staged):
             acc = acc + (seeds.long() & _U32).sum() + (pairs.long() * mask).sum()
         return int(acc)
 

@@ -154,7 +154,7 @@ def encode_stages(data: bytes, dev, cfg: dict) -> dict:
     c.lap("priors (host)")
     args = [we.stage_plane(batched, priors, i, dev) for i in range(wide.N_PLANES)]
     c.lap("stage_plane (upload, 5 planes)")
-    outs = we.plane_encode_planes(args)
+    outs = we._plane_encode_planes(args)  # priors checked by stage_plane
     c.lap("plane_encode_planes (one launch)")
     planes = [we.plane_streams(spec, a[4], *o) for spec, a, o in zip(wide.PLANES, args, outs)]
     c.lap("plane_streams (copy back, per-block streams)")

@@ -362,3 +362,65 @@ def test_plane_encode_kernel_multirow(four_row_plane, cuda):
     args = ((t(syms),), (t(rows),), t(counts), 4, steps, (t(prior),))
     for g, w in zip(tdev.plane_encode(*args), tdev.plane_encode_ref(*args)):
         assert torch.equal(g, w)
+
+
+# ------------------------------------------------ priors outside u16
+
+def _bad_priors(priors, value):
+    """The priors with one dst entry set to `value` (numpy, host)."""
+    bad = {k: [np.array(a) for a in v] for k, v in priors.items()}
+    bad["dst"][0][0, 5] = value
+    return bad
+
+
+@pytest.mark.parametrize("value", [200_000, -1], ids=["200000", "negative"])
+def test_plane_encode_refuses_priors_outside_u16(commands, value):
+    """plane_encode, plane_encode_planes and stage_plane (on the host
+    array, before the upload) raise ValueError for a prior value outside
+    0..65535, as plane_scan and plane_scan_fused do; no launch is
+    counted."""
+    *_, batched, priors = commands
+    bad = _bad_priors(priors, value)
+    with pytest.raises(ValueError, match="stage_plane: prior values must be in 0..65535"):
+        tdev.stage_plane(batched, bad, 4, "cpu")
+    staged = [tdev.stage_plane(batched, priors, i, "cpu") for i in range(5)]
+    args = staged[4][:5] + ((torch.from_numpy(bad["dst"][0].astype(np.int32)),),)
+    with pytest.raises(ValueError, match="plane_encode: prior values must be in 0..65535"):
+        tdev.plane_encode(*args)
+    with pytest.raises(ValueError, match="plane_encode_planes: prior values must be in 0..65535"):
+        tdev.plane_encode_planes(staged[:4] + [args])
+    assert tdev.plane_encode.launches == 0
+
+
+@pytest.mark.parametrize("fill", ["zero", "max"])
+def test_plane_encode_priors_at_u16_edges_match_jax(commands, fill):
+    """Priors of exactly 0 and 65535 (the check's edges) encode as JAX's,
+    through plane_encode and plane_encode_planes."""
+    *_, batched, priors = commands
+    staged, want = [], []
+    for plane, spec in enumerate(jwide.PLANES):
+        syms, rows, counts, _ = batched[spec.name]
+        steps = syms[0].shape[1] // spec.lanes
+        prior = [np.full(p.shape, 0 if fill == "zero" else 65535, np.int64)
+                 for p in priors[spec.name]]
+        want.append(_jax_plane(syms, rows, counts, plane, steps, prior))
+        _assert_same(_port_plane(syms, rows, counts, plane, steps, prior, np.uint8), want[-1])
+        staged.append(tdev.stage_plane(batched, {spec.name: prior}, plane, "cpu"))
+    for g, w in zip(tdev.plane_encode_planes(staged), want, strict=True):
+        _assert_same(g, w)
+
+
+def test_wide_encode_checks_priors_on_the_host_only(commands, monkeypatch):
+    """The wide device encode checks its priors once, on the host arrays
+    before their upload (stage_plane), and never on a tensor (a CUDA
+    tensor would cost a copy back)."""
+    op_len, op_val, op_rep, *_ = commands
+    seen = []
+    check = tdev._check_priors
+    monkeypatch.setattr(tdev, "_check_priors",
+                        lambda pri, name: (seen.append((name, [type(a) for a in pri])),
+                                           check(pri, name)))
+    got = tdev.encode_wide_blocks_device(op_len, op_val, op_rep, True, device="cpu")
+    assert got == jwide.encode_wide_blocks(op_len, op_val, op_rep, True)
+    assert [name for name, _ in seen] == ["stage_plane"] * 5
+    assert all(t is np.ndarray for _, types in seen for t in types)
