@@ -214,16 +214,31 @@ card and fails (nonzero exit, no result line) on anything wrong:
     and launch exactly huff_scan (its prior) and ppm_decode once; MB/s
     end to end and with the streams staged, the ratio, the host encode;
 26. e2e_huff0: huff0.decode of the 8 MB container must return the input
-    with one huff_scan launch; MB/s and the ratio.
+    with one huff_scan launch; MB/s and the ratio;
+27. cli: the command line (nlzm_tpu_torch.cli.main, in this process) on
+    the 8 MB: h; c at the wide shipping config (-profile:wide
+    -blocks:32768 -dict:32768, the native encode), then d and t on the
+    card (the four wide kernels); c -blocks:8192 -engine:device with the
+    optimal and the greedy parse (the v1 encode's kernels, the optimal
+    parse's three), each then d (fsm_decode, lz_expand); c -profile:wide
+    -blocks -parser:greedy on the default engine and the same with
+    -engine:device and -v, which must print the measured device peak
+    (both the device parse and one plane_encode launch), each then d; the single-stream c and d (no launch); d -engine:native
+    of a 1 MiB wide shipping container (no launch); and one subprocess
+    `python3 -m nlzm_tpu_torch.cli t` of the shipping container, which
+    must exit 0. Every output file must equal the input byte for byte and
+    every printed CRC zlib.crc32's; each call's launch counts go into the
+    kernels line as a path cli_*.
 
 Launch counts are set to 0 just before each main-path run (4, 5, 8, 9,
 10, both calls of each file in 12, 14, 15, 17, 18, 20, 21, 22, the wire
-plane decodes and the round trips of 23, 25 and 26) and read just after;
+plane decodes and the round trips of 23, 25, 26 and each call of 27) and
+read just after;
 a path that did not launch each of its kernels fails, 20-22 must launch
 exactly the kernels of one optimal-parse encode (V1_OPT_LAUNCHES,
 WIDE_OPT_LAUNCHES; 22 once per bucket), 25 NLZC_LAUNCHES. The kernels
 line reports the counts of 4, 8, the to-file calls of 12, 14, 15, 17, 18,
-20-22, 23, 25 and 26. Each phase prints one JSON line, and a "done" line
+20-22, 23, 25, 26 and 27. Each phase prints one JSON line, and a "done" line
 the whole run's seconds. The last three lines are the kernels summary,
 the card line of nvidia-smi, and {"ok": true, "device": ...}. Imports
 nothing of JAX, of nlzm_tpu or of bench.py: the port, and its own copy of
@@ -231,6 +246,7 @@ bench.py's corpus generator.
 """
 
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -6054,6 +6070,100 @@ def run_stream(files, device, card: str) -> dict:
     return by_file
 
 
+CLI_NATIVE_BYTES = 1 << 20  # the native engine's wide decode: a Python plane decoder
+
+
+def run_cli(data: bytes, device: str, card: str) -> dict:
+    """Phase 27: the command line in this process, each call through
+    launched() with the kernels it must launch (None: it must launch
+    none); every output file against the input, every printed CRC against
+    zlib.crc32. Returns {cli_<call>: its counts}."""
+    import contextlib
+    import io
+
+    from nlzm_tpu_torch.cli import main as cli
+
+    build = Path(__file__).resolve().parent / ".build"
+    build.mkdir(exist_ok=True)
+    paths, calls = {}, {}
+    dev = f"-device:{device}"
+
+    def run(name, args, need, out=None, want=data):
+        """cli(args) must exit 0, print want's CRC, launch every kernel of
+        `need` (None: none at all) and write `want` to `out`."""
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc, launches = launched(f"cli {name}", need or (), lambda: cli(args))
+        secs = time.perf_counter() - t0
+        text = buf.getvalue()
+        if rc != 0:
+            raise AssertionError(f"cli {name}: exit {rc}: {text[-400:]}")
+        if need is None and any(launches.values()):
+            raise AssertionError(f"cli {name}: a host-engine call launched kernels: {launches}")
+        crc = f"{zlib.crc32(want):X}"
+        if not re.search(rf"(?<![0-9A-F]){crc}(?![0-9A-F])", text):
+            raise AssertionError(f"cli {name}: no {crc} in its output: {text[-400:]}")
+        if out is not None and Path(out).read_bytes() != want:
+            raise AssertionError(f"cli {name}: the output differs from the input")
+        paths[f"cli_{name}"] = launches
+        calls[name] = {"seconds": secs, "launched": {k: v for k, v in launches.items() if v}}
+        peak = re.search(r"device peak: +(\d+) KB", text)
+        if peak:
+            calls[name]["device_peak_kb"] = int(peak.group(1))
+        return text
+
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        t = Path(tmp)
+        src = t / "in.bin"
+        src.write_bytes(data)
+        run("h", ["h", str(src)], None)
+        ship = t / "ship.nlzp"
+        run("ship_c", ["-profile:wide", "-blocks:32768", "-dict:32768", "c", str(src),
+                       str(ship)], None)
+        run("ship_d", [dev, "d", str(ship), str(t / "ship.out")], WIDE_KERNELS,
+            t / "ship.out")
+        run("ship_t", [dev, "t", str(ship)], WIDE_KERNELS)
+        for parser, need in (("optimal", V1OPT_KERNELS), ("greedy", V1ENC_KERNELS)):
+            z = t / f"v1_{parser}.nlzp"
+            run(f"v1_{parser}_c", [dev, "-blocks:8192", "-engine:device", f"-parser:{parser}",
+                                   "c", str(src), str(z)], need)
+            run(f"v1_{parser}_d", [dev, "d", str(z), str(t / f"v1_{parser}.out")], V1_KERNELS,
+                t / f"v1_{parser}.out")
+        for name, extra in (("wide_greedy", []), ("wide_greedy_dev", ["-engine:device", "-v"])):
+            z = t / f"{name}.nlzp"
+            text = run(f"{name}_c", [dev, "-profile:wide", "-blocks", "-parser:greedy", *extra,
+                                     "c", str(src), str(z)], ENC_KERNELS)
+            one_plane_launch(f"cli {name}_c", paths[f"cli_{name}_c"])
+            if extra and device.startswith("cuda") and "device peak" not in text:
+                raise AssertionError("cli wide_greedy_dev_c: -v printed no measured device peak")
+            run(f"{name}_d", [dev, "d", str(z), str(t / f"{name}.out")], WIDE_KERNELS,
+                t / f"{name}.out")
+        single = t / "single.nlzm"
+        run("single_c", ["c", str(src), str(single)], None)
+        run("single_d", ["d", str(single), str(t / "single.out")], None, t / "single.out")
+
+        small = data[:CLI_NATIVE_BYTES]
+        (t / "small.bin").write_bytes(small)
+        small_c = t / "small.nlzp"
+        run("small_c", ["-profile:wide", "-blocks:32768", "-dict:32768", "c",
+                        str(t / "small.bin"), str(small_c)], None, want=small)
+        run("native_d", ["-engine:native", "d", str(small_c), str(t / "small.out")], None,
+            t / "small.out", small)
+
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "nlzm_tpu_torch.cli", dev, "t", str(ship)],
+                           cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                           timeout=300)
+        if r.returncode != 0 or f"{zlib.crc32(data):X}" not in r.stdout:
+            raise AssertionError(f"cli subprocess t: exit {r.returncode}: {r.stdout[-400:]} "
+                                 f"{r.stderr[-400:]}")
+        calls["subprocess_t"] = {"seconds": time.perf_counter() - t0}
+    emit({"phase": "cli", "ok": True, "bytes": len(data), "native_bytes": len(small),
+          "calls": calls, "timing": "host clock, one call each", "card": card})
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -6150,6 +6260,7 @@ def main() -> int:
                     f"plain: 1 call (its comparison call past 1 s)",
           "card": card})
     research_launches = run_research(tally, corpus, "cuda", card)
+    cli_launches = run_cli(data, "cuda", card)
 
     src = "nlzm_tpu_torch/csrc/"
     replaces = {
@@ -6185,7 +6296,8 @@ def main() -> int:
     shapes["ppm_decode"] = "NLZC, 4 MiB at 16 KiB blocks, 256 blocks"
     paths = {"e2e_ship": wide_launches, "e2e_v1_bench": v1_launches,
              **{f"stream_{f}": c for f, c in stream_launches.items()}, **enc_launches,
-             **v1enc_launches, **opt_launches, **plane_launches, **research_launches}
+             **v1enc_launches, **opt_launches, **plane_launches, **research_launches,
+             **cli_launches}
     rows = []
     for n in replaces:
         r = tally.k[n]

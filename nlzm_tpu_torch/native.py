@@ -1,10 +1,13 @@
 """ctypes binding of the repo's native host engine (native/libnlzmx.so).
 
-A copy of the part of nlzm_tpu/native.py the port calls: block encode and
-decode, threaded v1 block encode, the native wide encode pipeline, and
-the pieces the device wide encode runs around its kernels (native parse,
-depth lift, rep classification, host plane encode).
-native/ is the repo's C++ engine (built by `make -C native` from
+A copy of the part of nlzm_tpu/native.py the port calls: CRC32, block
+encode and decode, threaded v1 block encode and decode, the command
+expansion of the wide host decode (with and without a shared
+dictionary), the bounded-memory single-stream encoder and decoder
+(StreamEncoder, StreamDecoder: codec.py's file paths), the native wide
+encode pipeline, and the pieces the device wide encode runs around its
+kernels (native parse, depth lift, rep classification, host plane
+encode). native/ is the repo's C++ engine (built by `make -C native` from
 native/src/, at first use); this module loads the same library.
 """
 
@@ -44,11 +47,20 @@ def load() -> ctypes.CDLL:
     c_i64p = ctypes.POINTER(c_i64)
     c_i32p = ctypes.POINTER(ctypes.c_int)
 
+    lib.nlzmx_crc32.restype = ctypes.c_uint
+    lib.nlzmx_crc32.argtypes = [c_u8p, c_i64, ctypes.c_uint]
+
     lib.nlzmx_encode_block.restype = c_i64
     lib.nlzmx_encode_block.argtypes = [c_u8p, c_i64, ctypes.c_int, ctypes.c_int, c_u8p, c_i64, c_i64p]
 
     lib.nlzmx_decode_block.restype = c_i64
     lib.nlzmx_decode_block.argtypes = [c_u8p, c_i64, ctypes.c_int, c_u8p, c_i64]
+
+    lib.nlzmx_expand_ops.restype = c_i64
+    lib.nlzmx_expand_ops.argtypes = [c_i32p, c_i32p, c_i64, c_u8p, c_i64]
+
+    lib.nlzmx_expand_ops_dict.restype = c_i64
+    lib.nlzmx_expand_ops_dict.argtypes = [c_i32p, c_i32p, c_i64, c_u8p, c_i64, c_u8p, c_i64]
 
     lib.nlzmx_wide_encode_data.restype = ctypes.c_int
     lib.nlzmx_wide_encode_data.argtypes = [
@@ -62,6 +74,32 @@ def load() -> ctypes.CDLL:
         c_u8p, c_i64, c_i64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         c_u8p, c_i64, c_i64p, c_i64p, c_i64p,
     ]
+
+    lib.nlzmx_decode_blocks.restype = ctypes.c_int
+    lib.nlzmx_decode_blocks.argtypes = [
+        c_u8p, c_i64, c_i64p, c_i64, ctypes.c_int, c_i64, ctypes.c_int, c_u8p, c_i64,
+    ]
+
+    lib.nlzmx_senc_new.restype = ctypes.c_void_p
+    lib.nlzmx_senc_new.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.nlzmx_senc_feed.restype = ctypes.c_int
+    lib.nlzmx_senc_feed.argtypes = [ctypes.c_void_p, c_u8p, c_i64, ctypes.c_int]
+    lib.nlzmx_senc_pending.restype = c_i64
+    lib.nlzmx_senc_pending.argtypes = [ctypes.c_void_p]
+    lib.nlzmx_senc_take.restype = c_i64
+    lib.nlzmx_senc_take.argtypes = [ctypes.c_void_p, c_u8p, c_i64]
+    lib.nlzmx_senc_free.restype = None
+    lib.nlzmx_senc_free.argtypes = [ctypes.c_void_p]
+    lib.nlzmx_sdec_new.restype = ctypes.c_void_p
+    lib.nlzmx_sdec_new.argtypes = [ctypes.c_int]
+    lib.nlzmx_sdec_feed.restype = ctypes.c_int
+    lib.nlzmx_sdec_feed.argtypes = [ctypes.c_void_p, c_u8p, c_i64]
+    lib.nlzmx_sdec_pending.restype = c_i64
+    lib.nlzmx_sdec_pending.argtypes = [ctypes.c_void_p]
+    lib.nlzmx_sdec_take.restype = c_i64
+    lib.nlzmx_sdec_take.argtypes = [ctypes.c_void_p, c_u8p, c_i64]
+    lib.nlzmx_sdec_free.restype = None
+    lib.nlzmx_sdec_free.argtypes = [ctypes.c_void_p]
 
     lib.nlzmx_parse_blocks.restype = ctypes.c_int
     lib.nlzmx_parse_blocks.argtypes = [
@@ -97,6 +135,17 @@ def _u8p(arr: np.ndarray):
     return arr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
 
 
+def _i32p(arr: np.ndarray):
+    return arr.ctypes.data_as(ctypes.POINTER(ctypes.c_int))
+
+
+def crc32(data: bytes, prev: int = 0) -> int:
+    buf = np.frombuffer(data, dtype=np.uint8)
+    if len(buf) == 0:
+        return prev
+    return load().nlzmx_crc32(_u8p(buf), len(buf), prev)
+
+
 def encode_block(data: bytes, hist_bits: int, parser: str = "optimal"):
     """Encode one block -> (payload_bytes, total_reads, num_cmds)."""
     lib = load()
@@ -128,6 +177,95 @@ def decode_block(payload: bytes, hist_bits: int, out_cap: int) -> bytes:
     return dst[:got].tobytes()
 
 
+def expand_ops(op_len: np.ndarray, op_val: np.ndarray, out_cap: int,
+               dictionary: bytes | None = None) -> bytes:
+    """Expand one block's op arrays (int32, aligned) into bytes.
+
+    dictionary: optional shared-dict bytes as virtual history before the
+    output start (distances may reach len(dictionary) bytes back)."""
+    lib = load()
+    op_len = np.ascontiguousarray(op_len, dtype=np.int32)
+    op_val = np.ascontiguousarray(op_val, dtype=np.int32)
+    dst = np.empty(max(out_cap, 1), dtype=np.uint8)
+    if dictionary:
+        darr = np.frombuffer(dictionary, dtype=np.uint8)
+        got = lib.nlzmx_expand_ops_dict(_i32p(op_len), _i32p(op_val), len(op_len), _u8p(dst),
+                                        out_cap, _u8p(darr), len(darr))
+    else:
+        got = lib.nlzmx_expand_ops(_i32p(op_len), _i32p(op_val), len(op_len), _u8p(dst), out_cap)
+    if got < 0:
+        raise RuntimeError("native expand failed")
+    return dst[:got].tobytes()
+
+
+def _feed_ptr(arr: np.ndarray):
+    return _u8p(arr) if len(arr) else _u8p(np.zeros(1, np.uint8))
+
+
+class StreamEncoder:
+    """Bounded-memory streaming NLZM encoder (frames-only payload).
+
+    Feed input in chunks, drain compressed bytes as they complete; the
+    native state holds O(window) whatever the file size (the reference's
+    overlapped-refill loop, NLZM.cpp:1870-1885). Byte-identical to
+    encode_block on the same input (same chunk schedule)."""
+
+    def __init__(self, hist_bits: int, parser: str = "optimal"):
+        self._lib = load()
+        self._h = self._lib.nlzmx_senc_new(hist_bits, _PARSER_IDS[parser])
+        self.hist_bits = hist_bits
+
+    def feed(self, data: bytes, final: bool = False) -> bytes:
+        arr = np.frombuffer(data, np.uint8)
+        self._lib.nlzmx_senc_feed(self._h, _feed_ptr(arr), len(arr), 1 if final else 0)
+        n = self._lib.nlzmx_senc_pending(self._h)
+        if n == 0:
+            return b""
+        buf = np.empty(n, np.uint8)
+        got = self._lib.nlzmx_senc_take(self._h, _u8p(buf), n)
+        return buf[:got].tobytes()
+
+    def close(self):
+        if self._h:
+            self._lib.nlzmx_senc_free(self._h)
+            self._h = None
+
+    __del__ = close
+
+
+class StreamDecoder:
+    """Bounded-memory streaming NLZM decoder (frames-only payload).
+
+    Feed compressed bytes, drain decoded output; the native state holds
+    one window of history. `done` flips when the sentinel frame is seen."""
+
+    def __init__(self, hist_bits: int):
+        self._lib = load()
+        self._h = self._lib.nlzmx_sdec_new(hist_bits)
+        self.done = False
+
+    def feed(self, data: bytes) -> bytes:
+        arr = np.frombuffer(data, np.uint8)
+        rc = self._lib.nlzmx_sdec_feed(self._h, _feed_ptr(arr), len(arr))
+        if rc < 0:
+            raise RuntimeError("corrupt NLZM stream")
+        if rc == 1:
+            self.done = True
+        n = self._lib.nlzmx_sdec_pending(self._h)
+        if n == 0:
+            return b""
+        buf = np.empty(n, np.uint8)
+        got = self._lib.nlzmx_sdec_take(self._h, _u8p(buf), n)
+        return buf[:got].tobytes()
+
+    def close(self):
+        if self._h:
+            self._lib.nlzmx_sdec_free(self._h)
+            self._h = None
+
+    __del__ = close
+
+
 def encode_blocks(data: bytes, block_size: int, hist_bits: int, parser: str = "optimal"):
     """Threaded block encode -> (list of payloads, reads, cmds)."""
     lib = load()
@@ -152,6 +290,29 @@ def encode_blocks(data: bytes, block_size: int, hist_bits: int, parser: str = "o
         raise RuntimeError("native block encode failed")
     payloads = [dst[b * block_cap : b * block_cap + sizes[b]].tobytes() for b in range(nblocks)]
     return payloads, reads.tolist(), cmds.tolist()
+
+
+def decode_blocks(payloads: list, hist_bits: int, block_size: int, total_len: int) -> bytes:
+    """Threaded block decode of per-block v1 payloads, cut to total_len."""
+    lib = load()
+    nblocks = len(payloads)
+    if nblocks == 0:
+        return b""
+    threads = min(os.cpu_count() or 1, nblocks)
+    stride = max(len(p) for p in payloads) + 8
+    src = np.zeros(nblocks * stride, dtype=np.uint8)
+    sizes = np.zeros(nblocks, dtype=np.int64)
+    for b, p in enumerate(payloads):
+        src[b * stride : b * stride + len(p)] = np.frombuffer(p, dtype=np.uint8)
+        sizes[b] = len(p)
+    dst = np.empty(nblocks * block_size, dtype=np.uint8)
+    rc = lib.nlzmx_decode_blocks(
+        _u8p(src), stride, sizes.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)),
+        nblocks, hist_bits, block_size, threads, _u8p(dst), len(dst),
+    )
+    if rc != 0:
+        raise RuntimeError("native block decode failed")
+    return dst.tobytes()[:total_len]
 
 
 def wide_encode_pipeline(data: bytes, block_size: int, hist_bits: int, depth_cap: int = 16,
@@ -211,10 +372,6 @@ def wide_encode_pipeline(data: bytes, block_size: int, hist_bits: int, depth_cap
         off += int(sizes[b])
     blob = priors_in if priors_in is not None else (priors.tobytes() if with_priors else b"")
     return payloads, blob, depths, [int(c) for c in ncmds]
-
-
-def _i32p(arr: np.ndarray):
-    return arr.ctypes.data_as(ctypes.POINTER(ctypes.c_int))
 
 
 def lift_deep(op_len: np.ndarray, op_val: np.ndarray, block_size: int) -> np.ndarray:

@@ -1,17 +1,21 @@
-"""NLZP block container: encode, parsing, and decode on a PyTorch device.
+"""NLZP block container: encode, parsing, and decode on a PyTorch device
+or the native host engine.
 
 Counterpart of nlzm_tpu/parallel/blocks.py. The container code (header
 constants, ContainerInfo, parse_container, CRC verification, payload
 slicing, dictionary sampling and (de)compression) is a copy of the
 original; tests/test_torch_host.py pins its output to it. Encode runs on
 the native host engine (the wide profile through
-native.wide_encode_pipeline, v1 through native.encode_blocks) or, with
-the greedy or the optimal parse, on the device (engine="device"): the wide
-profile through ops/encode_ops.py's parse and ops/wide_encode_dev.py, v1 through
-ops/encode_ops.py::encode_blocks_device (one frame per block, all on the
-device). Decode runs both profiles on the device: wide through
-ops/wide_decode.py, v1 through ops/decode_v2.py (fsm_decode_v2) and
-ops/expand_ops.py.
+native.wide_encode_pipeline with the optimal parse, or with the greedy
+parse through the device encode below; v1 through native.encode_blocks)
+or, with the greedy or the optimal parse, on the device
+(engine="device"): the wide profile through ops/encode_ops.py's parse and ops/wide_encode_dev.py, v1
+through ops/encode_ops.py::encode_blocks_device (one frame per block, all
+on the device). Decode runs both profiles on the device (engine="device":
+wide through ops/wide_decode.py, v1 through ops/decode_v2.py
+(fsm_decode_v2) and ops/expand_ops.py) or on the native host engine
+(engine="native": format/wide.py::decode_wide_block and
+native.expand_ops, or native.decode_blocks).
 
 Container layout (all integers big-endian):
 
@@ -39,7 +43,7 @@ import torch
 
 from .. import native
 from ..constants import frame_bits_for
-from ..format.wide import priors_blob_size
+from ..format.wide import decode_wide_block, priors_blob_size
 from ..ops.decode_v2 import fsm_decode_v2
 from ..ops.encode_ops import encode_blocks_device, parse_blocks_device
 from ..ops.expand_ops import lz_expand_parallel, scatter_blocks
@@ -123,9 +127,11 @@ def encode_container(
     this one's "device").
 
     engine "auto" or "native": the native host engine; profile="wide"
-    then needs parser="optimal" (the native wide pipeline), depth_cap
+    with parser="optimal" runs the native wide pipeline, where depth_cap
     bounds every byte's literal-ancestor chain depth and dict_size > 0
-    samples a shared dictionary. engine="device": the device parse
+    samples a shared dictionary; with parser="greedy" the wide encode of
+    engine="device" (nlzm_tpu's engine "auto" runs a numpy plane encode
+    there; the bytes are the same). engine="device": the device parse
     (ops/encode_ops.py; parser "greedy", or "optimal", the calibrated DP
     parse) on `device`, then for the wide profile the device plane encode
     (ops/wide_encode_dev.py; no dictionary), for v1 the device model
@@ -135,10 +141,6 @@ def encode_container(
     """
     if engine not in ("auto", "native", "device"):
         raise ValueError(f"engine={engine!r}: 'auto', 'native' or 'device'")
-    if engine != "device" and profile == "wide" and parser != "optimal":
-        raise NotImplementedError(
-            f"engine={engine!r}, parser={parser!r}: the host engine encodes the wide profile "
-            "with parser='optimal' only; the greedy parse runs with engine='device'")
     dictionary = b""
     if dict_size and profile == "wide":
         dictionary = sample_dict(data, dict_size)
@@ -152,24 +154,23 @@ def encode_container(
         if block_size > WIDE_MAX_BLOCK:
             raise ValueError("wide profile caps blocks at 128 KiB")
         flags |= FLAG_WIDE
-        if dictionary and engine == "device":
+        native_pipeline = engine != "device" and parser == "optimal"
+        if dictionary and not native_pipeline:
             raise ValueError(
                 "shared dictionaries need the native optimal-parse pipeline "
                 "(engine != 'device', parser='optimal')")
-        if num_blocks and engine == "device":
-            # device parse feeds the device plane encoder (byte-identical
-            # to the host's)
+        if num_blocks and native_pipeline:
+            payloads, priors_blob, depths, ncmds = native.wide_encode_pipeline(
+                data, block_size, hist_bits, depth_cap=depth_cap,
+                dictionary=dictionary or None,
+            )
+        elif num_blocks:
             op_len, op_val, op_rep, depths = parse_blocks_device(
                 data, block_size, hist_bits, parser, device=device)
             payloads, priors_blob = encode_wide_blocks_device(op_len, op_val, op_rep,
                                                               device=device)
             neg = op_len < 0
             ncmds = np.where(neg.any(axis=0), neg.argmax(axis=0), op_len.shape[0]).tolist()
-        elif num_blocks:
-            payloads, priors_blob, depths, ncmds = native.wide_encode_pipeline(
-                data, block_size, hist_bits, depth_cap=depth_cap,
-                dictionary=dictionary or None,
-            )
         if num_blocks:
             if priors_blob:
                 flags |= FLAG_PRIORS
@@ -333,22 +334,55 @@ def _verified(out: bytes, info: ContainerInfo) -> bytes:
     return out
 
 
-def decode_container(data: bytes, device="cuda") -> bytes:
-    """Decode an NLZP container (wide or v1 profile) on `device` ("cuda",
-    "cpu", a torch.device), CRC-verified when the container carries a CRC.
+def decode_blocks_native(payloads, info: ContainerInfo, keep: int) -> bytes:
+    """The native engine's decode of block payloads (consecutive blocks of
+    the container `info` describes), cut to `keep` bytes. Wide blocks go
+    through the host plane decode (format/wide.py::decode_wide_block) and
+    native.expand_ops with the container's dictionary, v1 blocks through
+    native.decode_blocks. A payload the decoders reject (the plane
+    decode's ValueError, the library's RuntimeError) raises
+    IntegrityError; any other error passes through, as in nlzm_tpu, and
+    so does NativeUnavailable for a missing library."""
+    try:
+        if not info.wide:
+            return native.decode_blocks(payloads, info.hist_bits, info.block_size, keep)
+        parts = []
+        for payload in payloads:
+            op_len, op_val = decode_wide_block(payload, info.wide_priors)
+            parts.append(native.expand_ops(np.asarray(op_len, np.int32),
+                                           np.asarray(op_val, np.int32), info.block_size,
+                                           info.dictionary or None))
+        return b"".join(parts)[:keep]
+    except native.NativeUnavailable:
+        raise
+    except (ValueError, RuntimeError) as e:
+        raise IntegrityError(f"corrupt block payload: {e}") from e
 
-    Raises IntegrityError on a CRC mismatch.
+
+def decode_container(data: bytes, device="cuda", engine: str = "device") -> bytes:
+    """Decode an NLZP container (wide or v1 profile), CRC-verified when the
+    container carries a CRC.
+
+    engine="device": on `device` ("cuda", "cpu", a torch.device).
+    engine="native": on the native host engine (`device` unused;
+    decode_blocks_native); raises NativeUnavailable when the library
+    cannot be built. Raises IntegrityError on a CRC mismatch or a
+    payload the decoders reject.
     """
+    if engine not in ("device", "native"):
+        raise ValueError(f"engine={engine!r}: 'device' or 'native'")
     info = parse_container(data)
     if not info.comp_sizes:
         return _verified(b"", info)
+    payloads = block_payloads(data, info)
+    if engine == "native":
+        return _verified(decode_blocks_native(payloads, info, info.total_len), info)
     dev = torch.device(device)
     if info.wide:
         out = decode_wide_blocks(
-            block_payloads(data, info), info.block_size, info.total_len, info.wide_priors,
+            payloads, info.block_size, info.total_len, info.wide_priors,
             info.total_reads, dict_tensor(info.dictionary, dev), device=dev,
         )
         return _verified(out, info)
-    out = decode_v1_blocks(block_payloads(data, info), info.num_cmds, info.block_size,
-                           info.total_len, device=dev)
+    out = decode_v1_blocks(payloads, info.num_cmds, info.block_size, info.total_len, device=dev)
     return _verified(out, info)

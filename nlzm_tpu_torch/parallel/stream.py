@@ -1,7 +1,8 @@
 """Bounded-memory NLZP container files: bucket-at-a-time file I/O.
 
 Counterpart of nlzm_tpu/parallel/stream.py: the file encode (host
-engines, and the v1 device encode) and the device file decode. The file
+engines, and the v1 device encode) and the file decode (on the device, or
+on the native host engine, both profiles). The file
 goes through in buckets of consecutive blocks (default 16 MiB of plain
 data per bucket), so host memory stays O(dictionary + bucket) whatever
 the file size; the CRC is accumulated bucket by bucket. Wire format: the
@@ -9,8 +10,9 @@ container of parallel/blocks.py. The encoder writes placeholders for the
 CRC, the priors and the block table, streams the payloads, and patches
 them in at the end; the wide profile's priors come from the first bucket
 and every later bucket encodes against them (any blob is wire-valid: the
-decoder applies the stored one). The host engines of the file decode are
-not ported (ROADMAP.md queue A item 7).
+decoder applies the stored one). The native engine of the file decode
+needs the native library and raises NativeUnavailable without it (the
+JAX function has no such guard and fails on a missing symbol).
 """
 
 import os
@@ -27,8 +29,8 @@ from ..ops.wide_decode import decode_wide_blocks, dict_tensor
 from ..utils.crc32 import crc32
 from .blocks import (
     _BLK, _HDR, FLAG_CRC32, FLAG_DICT, FLAG_PRIORS, FLAG_WIDE, MAGIC, VERSION, WIDE_MAX_BLOCK,
-    ContainerInfo, IntegrityError, _compress_dict, _decompress_dict, decode_v1_blocks,
-    hist_bits_for_block,
+    ContainerInfo, IntegrityError, _compress_dict, _decompress_dict, decode_blocks_native,
+    decode_v1_blocks, hist_bits_for_block,
 )
 
 DEFAULT_BUCKET_BYTES = 16 << 20
@@ -218,23 +220,31 @@ def decode_container_stream(
     src_path: str,
     dst_path: str | None,
     device="cuda",
+    engine: str = "device",
     progress=None,
     bucket_bytes: int = DEFAULT_BUCKET_BYTES,
 ) -> dict:
-    """Stream-decode an NLZP container file on `device`, bucket by bucket.
+    """Stream-decode an NLZP container file, bucket by bucket.
 
-    dst_path None = test mode (decode + CRC only, like the reference's
-    `t`). The CRC is accumulated incrementally and verified against the
-    stored value (IntegrityError on a mismatch). Returns {"in", "out",
-    "crc32"}.
+    engine="device": on `device`; engine="native": on the native host
+    engine (blocks.decode_blocks_native; NativeUnavailable without the
+    library). dst_path None = test mode (decode + CRC only, like the
+    reference's `t`). The CRC is accumulated incrementally and verified
+    against the stored value (IntegrityError on a mismatch). Returns
+    {"in", "out", "crc32"}.
     """
+    if engine not in ("device", "native"):
+        raise ValueError(f"engine={engine!r}: 'device' or 'native'")
+    if engine == "native":
+        native.load()
     flen = os.stat(src_path).st_size
     with open(src_path, "rb") as fin:
         info = read_container_head(fin)
         num_blocks = len(info.comp_sizes)
         N = info.block_size
         bucket_nb = _bucket_blocks(N, bucket_bytes)
-        dict_arr = dict_tensor(info.dictionary, device) if info.wide else None
+        on_device = info.wide and engine == "device"
+        dict_arr = dict_tensor(info.dictionary, device) if on_device else None
 
         out_f = open(dst_path, "wb") if dst_path else None
         crc = 0
@@ -245,7 +255,9 @@ def decode_container_stream(
                 nb = min(bucket_nb, num_blocks - b0)
                 payloads = [fin.read(info.comp_sizes[b0 + k]) for k in range(nb)]
                 keep = min(nb * N, info.total_len - b0 * N)
-                if info.wide:
+                if engine == "native":
+                    plain = decode_blocks_native(payloads, info, keep)
+                elif info.wide:
                     plain = decode_wide_blocks(
                         payloads, N, keep, info.wide_priors,
                         info.total_reads[b0 : b0 + nb], dict_arr, device=device)
