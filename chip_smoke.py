@@ -5,8 +5,9 @@
 
 Drives the port's main paths - wide-profile and v1 NLZP container decode,
 in memory and from files, and the wide-profile and v1 device encodes with
-the greedy and the optimal parse, in memory and (v1) to a file - on the
-card and fails (nonzero exit, no result line) on anything wrong:
+the greedy and the optimal parse, in memory and (v1) to a file, and the
+block-sharded forms of the decodes and the v1 encode - on the card and
+fails (nonzero exit, no result line) on anything wrong:
 
 1. device: a CUDA device is required; prints the card's name and power limit;
 2. build: compiles the eighteen kernels (seventeen sources) from
@@ -29,7 +30,8 @@ card and fails (nonzero exit, no result line) on anything wrong:
    decode right after must still succeed;
 7. kernels_v1: the bench's v1 config (8 MB, 32 KiB blocks, optimal
    parse): fsm_decode against fsm_decode_v2_ref and lz_expand on the v1
-   command arrays against its plain version, exact; CUDA-event times;
+   command arrays against its plain version, exact; CUDA-event times
+   (the plain fsm on the card replays one step's CUDA graph);
    fsm_decode also on hostile_streams of that bucket (two seeds, 1024
    steps) against its plain version, exact; then fsm_decode timed, with
    its steps and ns a step of the longest block's chain, on the bench
@@ -228,17 +230,37 @@ card and fails (nonzero exit, no result line) on anything wrong:
     `python3 -m nlzm_tpu_torch.cli t` of the shipping container, which
     must exit 0. Every output file must equal the input byte for byte and
     every printed CRC zlib.crc32's; each call's launch counts go into the
-    kernels line as a path cli_*.
+    kernels line as a path cli_*;
+28. mesh: block sharding (parallel/mesh.py) with every shard on cuda:0:
+    the shipping wide container (3's) through decode_wide_sharded over
+    1, 2 and 4 shards (245 blocks padded to 245, 246, 248), the v1 bench
+    container (8's) through decode_container_sharded over 2 and 4, the
+    8 MiB v1 device encode (greedy, 8 KiB blocks) over 3 shards (1024
+    blocks padded to 1026; payloads, reads and cmds equal to the
+    unsharded encode's, which the device encode's container holds and
+    which decodes back over 3 shards) and its optimal parse on the first
+    1 MiB, the NLZC container (25's) through decompress(mesh=) over 3, a
+    2k + 1-block shipping container over k = 4; every output equal to
+    the input (or the unsharded encode's), every call's launches exact;
+    host-clock best of 3 of each decode (one card, and one process stages
+    its shards in turn: no scaling); a bit flip in the shipping container
+    must raise IntegrityError; the current CUDA device unchanged by the
+    phase's launches; then parallel/mp_dryrun.py, three runs side by
+    side, each printing its ok line: JAX's dry-run corpus as two
+    processes on gloo sharing the card and as one on nccl, and the 8 MB
+    corpus at the shipping config (32 KiB blocks, a 32 KiB dictionary,
+    245 blocks padded to 246) as two processes on gloo. Each call's
+    launch counts go into the kernels line as a path mesh_*.
 
 Launch counts are set to 0 just before each main-path run (4, 5, 8, 9,
 10, both calls of each file in 12, 14, 15, 17, 18, 20, 21, 22, the wire
-plane decodes and the round trips of 23, 25, 26 and each call of 27) and
-read just after;
+plane decodes and the round trips of 23, 25, 26 and each call of 27 and
+28) and read just after;
 a path that did not launch each of its kernels fails, 20-22 must launch
 exactly the kernels of one optimal-parse encode (V1_OPT_LAUNCHES,
 WIDE_OPT_LAUNCHES; 22 once per bucket), 25 NLZC_LAUNCHES. The kernels
 line reports the counts of 4, 8, the to-file calls of 12, 14, 15, 17, 18,
-20-22, 23, 25, 26 and 27. Each phase prints one JSON line, and a "done" line
+20-22, 23, 25, 26, 27 and 28. Each phase prints one JSON line, and a "done" line
 the whole run's seconds. The last three lines are the kernels summary,
 the card line of nvidia-smi, and {"ok": true, "device": ...}. Imports
 nothing of JAX, of nlzm_tpu or of bench.py: the port, and its own copy of
@@ -269,7 +291,7 @@ REPS = 5  # end-to-end timings: best of REPS
 KERNEL_REPS = 20  # kernel timings: mean of KERNEL_REPS back-to-back launches
 FSM_REPS = 5  # fsm_decode: mean of FSM_REPS launches (each runs ~10^4 steps)
 HOSTILE_SEEDS = (0, 1)  # hostile_streams of the v1 bench bucket
-HOSTILE_STEPS = 1024  # their plain decode takes 4-8 ms a step on the card
+HOSTILE_STEPS = 1024  # steps of their plain decode
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 # H100 SXM peak of int32 operations, the type of every kernel here: 132 SMs
 # x 64 INT32 lanes x 2 operations (IADD3, LOP3 and IMAD fuse two) x 1.98
@@ -325,6 +347,15 @@ HUFF0 = dict(bytes=SHIP_BYTES, block_size=32768)  # the huff0 container default
 HUFF0_TRUNC = dict(bytes=256 << 10, block_size=4096)  # a short chain for the plain scan
 HUFF_BIG = dict(bytes=2 << 20, block_size=131072)  # huff_scan across pages
 NLZC_LAUNCHES = dict(huff_scan=1, ppm_decode=1)  # the prior, then the blocks
+# phase mesh (parallel/mesh.py): shards on [cuda:0] * k of one card
+MESH_WIDE_KS = (1, 2, 4)  # the shipping wide container, 245 blocks padded to 245, 246, 248
+MESH_V1_KS = (2, 4)  # the v1 bench container
+MESH_ENC_K = 3  # the 8 MiB v1 device encode at 8 KiB blocks: 1024 blocks padded to 1026
+MESH_OPT_BYTES = 1 << 20  # its optimal parse on the first 1 MiB: 128 blocks padded to 129
+MESH_NLZC_K = 3  # NLZC's 256 blocks padded to 258
+MESH_RAGGED_K = 4  # a 2k + 1-block shipping container
+MESH_REPS = 3  # host-clock best of
+MP_TIMEOUT = 300  # seconds for a multi-process run, its children killed past it
 # csrc/ppm_decode.cu's scheme (ppm_model): slots a chunk (the most rows it
 # can read, 2 tables x 32 lanes x 16 steps), the slots in shared memory,
 # and the stream words that fit it (the rest read device memory)
@@ -1399,7 +1430,7 @@ def fuzz_ppm(seed: int, B: int = 4, block: int = 2048, names=None) -> dict:
     def under(data, bs, prior=P, trim=0):
         streams = ppm_tpu.encode_blocks(cut(data, bs), prior)
         streams[-1] = streams[-1][: len(streams[-1]) - trim]
-        return staged(ppm_tpu.stage_streams(streams, bs, len(data), prior, "cpu")[0])
+        return staged(ppm_tpu.stage_streams(streams, bs, len(data), prior, ["cpu"])[0][0])
 
     def container(data, bs):
         return staged(ppm_tpu.stage_container(ppm_tpu.compress(data, bs), "cpu")[0])
@@ -3232,10 +3263,10 @@ def fsm_work(streams, op_len, op_val, reads: int):
 
 def check_kernels_v1(tally: Tally, buckets, info):
     """fsm_decode and lz_expand against their plain versions on the v1
-    buckets (the plain fsm, a step loop of minutes, timed on its comparison
-    call);
+    buckets (the plain fsm, one step's CUDA graph replayed for some ten
+    seconds, timed on its comparison call);
     then fsm_decode on hostile streams made from the first bucket
-    (untimed)."""
+    (untimed). Returns the hostile streams' shape."""
     import torch
 
     from nlzm_tpu_torch.ops import decode_v2 as dv
@@ -3442,7 +3473,8 @@ def run_v1(tally: Tally, data: bytes, device, card: str):
           "kernels": tally.summary(("fsm_decode", "lz_expand_v1")), "hostile": hostile,
           "fsm_decode_shapes": shapes,
           "timing": f"CUDA events; fsm_decode: mean of {FSM_REPS} calls, plain once (its "
-                    f"comparison call past 1 s); lz_expand: mean of {KERNEL_REPS}, plain of 3",
+                    f"comparison call past 1 s; one step's CUDA graph, captured, replayed); "
+                    f"lz_expand: mean of {KERNEL_REPS}, plain of 3",
           "card": card})
 
     def staged_run():
@@ -5974,7 +6006,7 @@ def check_research(tally: Tally, data: bytes, hc: bytes, blob: bytes, device):
 
 
 def run_research(tally: Tally, data: bytes, device, card: str):
-    """Phases 24-26; returns {path: main-path launches}."""
+    """Phases 24-26; returns ({path: main-path launches}, the NLZC container)."""
     from nlzm_tpu_torch.research import huff0, ppm_tpu
 
     ndata, hdata = data[: NLZC["bytes"]], data[: HUFF0["bytes"]]
@@ -6023,7 +6055,7 @@ def run_research(tally: Tally, data: bytes, device, card: str):
           "encode_host_s": huff0_s, "launches": by_path["e2e_huff0"], "e2e_ms": e2e,
           "e2e_MBps": len(hdata) / e2e / 1e3,
           "timing": f"CUDA events around decode, best of {REPS}", "card": card})
-    return by_path
+    return by_path, blob
 
 
 def host_best(fn, reps: int) -> float:
@@ -6164,6 +6196,147 @@ def run_cli(data: bytes, device: str, card: str) -> dict:
     return paths
 
 
+def wide_buckets(rows: int) -> int:
+    """Buckets of a wide decode of `rows` blocks (ops/wide_decode.py
+    prepare_wide_bucketed): one up to 8 a bucket, else N_BUCKETS."""
+    from nlzm_tpu_torch.ops import wide_decode as wd
+
+    return 1 if rows <= 8 * wd.N_BUCKETS else wd.N_BUCKETS
+
+
+def run_mesh(corpus: bytes, wide_c: bytes, v1_c: bytes, nlzc_blob: bytes, device: str,
+             card: str) -> dict:
+    """Phase 28: block sharding (parallel/mesh.py, parallel/mp_dryrun.py),
+    every shard on `device` ("cuda": cuda:0; one card, so the k shards of
+    a call run one after another and its time is no scaling). Every
+    output is checked, every call's launches are exact; the multi-process
+    runs: JAX's corpus as two ranks on gloo sharing the device and, on a
+    card, one on nccl; the 8 MB at the shipping config as two ranks on
+    gloo. Returns {mesh_*: launches}."""
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+
+    from nlzm_tpu_torch.ops.encode_ops import encode_blocks_device
+    from nlzm_tpu_torch.parallel import mesh, mp_dryrun
+    from nlzm_tpu_torch.parallel.blocks import IntegrityError, encode_container, parse_container
+    from nlzm_tpu_torch.research import ppm_tpu
+
+    cuda = device.startswith("cuda")
+    before = torch.cuda.current_device() if cuda else None
+    paths, equal = {}, {}
+
+    def on_card(k):
+        return mesh.make_mesh([device] * k)
+
+    def run(label, fn, want, per_run, runs=1):
+        """fn() through launched(): its output must equal want and its
+        launches be per_run's, runs times."""
+        out, paths[label] = launched(label, tuple(per_run), fn)
+        exact_launches(label, paths[label], per_run, runs)
+        if out != want:
+            raise AssertionError(f"{label}: the output differs")
+        equal[label] = True
+        return out
+
+    data = corpus[:SHIP_BYTES]
+    n_wide = len(parse_container(wide_c).comp_sizes)
+    wide, v1 = {}, {}
+    for k in MESH_WIDE_KS:
+        m = on_card(k)
+        run(f"mesh_wide_k{k}", lambda: mesh.decode_wide_sharded(wide_c, m), data,
+            dict.fromkeys(WIDE_KERNELS, wide_buckets(-(-n_wide // k))), k)
+        ms = host_best(lambda: mesh.decode_wide_sharded(wide_c, m), MESH_REPS) * 1e3
+        wide[f"k{k}"] = {"rows": -(-n_wide // k) * k, "ms": ms, "MBps": len(data) / ms / 1e3}
+    for k in MESH_V1_KS:
+        m = on_card(k)
+        run(f"mesh_v1_k{k}", lambda: mesh.decode_container_sharded(v1_c, m), data,
+            dict.fromkeys(V1_KERNELS, 1), k)
+        ms = host_best(lambda: mesh.decode_container_sharded(v1_c, m), MESH_REPS) * 1e3
+        v1[f"k{k}"] = {"ms": ms, "MBps": len(data) / ms / 1e3}
+
+    k = MESH_ENC_K
+    m = on_card(k)
+    enc_data, bs, hb = corpus[:V1_ENC_BYTES], V1_ENC["block_size"], V1_ENC_HIST_BITS
+    single = encode_blocks_device(enc_data, bs, hb, "greedy", device=device)
+    t0 = time.perf_counter()
+    sharded = run(f"mesh_enc_k{k}", lambda: encode_blocks_device(enc_data, bs, hb, "greedy",
+                                                                 mesh=m),
+                  single, dict.fromkeys(V1ENC_KERNELS, 1), k)
+    enc = {"blocks": len(single[0]), "rows": -(-len(single[0]) // k) * k,
+           "seconds": time.perf_counter() - t0}
+    container = encode_container(enc_data, engine="device", device=device, **V1_ENC)
+    if not container.endswith(b"".join(sharded[0])):
+        raise AssertionError("mesh: the device encode's container does not hold the payloads")
+    run(f"mesh_enc_decode_k{k}", lambda: mesh.decode_container_sharded(container, m), enc_data,
+        dict.fromkeys(V1_KERNELS, 1), k)
+    opt_data = corpus[:MESH_OPT_BYTES]
+    t0 = time.perf_counter()
+    run(f"mesh_enc_opt_k{k}", lambda: encode_blocks_device(opt_data, bs, hb, "optimal", mesh=m),
+        encode_blocks_device(opt_data, bs, hb, "optimal", device=device), V1_OPT_LAUNCHES, k)
+    enc["optimal_seconds"] = time.perf_counter() - t0
+
+    k = MESH_NLZC_K
+    ndata = corpus[: NLZC["bytes"]]
+    m = on_card(k)
+    run(f"mesh_nlzc_k{k}", lambda: ppm_tpu.decompress(nlzc_blob, mesh=m), ndata,
+        {"huff_scan": 1, "ppm_decode": k})
+    nlzc_ms = host_best(lambda: ppm_tpu.decompress(nlzc_blob, mesh=m), MESH_REPS) * 1e3
+
+    k = MESH_RAGGED_K
+    rdata = data[: 2 * k * SHIP["block_size"] + 17]
+    rc = encode_container(rdata, parser="optimal", profile="wide", **SHIP)
+    if len(parse_container(rc).comp_sizes) != 2 * k + 1:
+        raise AssertionError("mesh: the ragged container is not 2k + 1 blocks")
+    run(f"mesh_ragged_k{k}", lambda: mesh.decode_wide_sharded(rc, on_card(k)), rdata,
+        dict.fromkeys(WIDE_KERNELS, wide_buckets(3)), k)
+
+    try:
+        mesh.decode_wide_sharded(corrupt_copy(wide_c), on_card(2))
+    except IntegrityError as e:
+        raised = str(e)
+    else:
+        raise AssertionError("mesh: a corrupt container decoded without IntegrityError")
+    after = torch.cuda.current_device() if cuda else None
+    if after != before:
+        raise AssertionError(f"mesh: the current device moved from {before} to {after}")
+
+    # the multi-process mode, every run at once: JAX's corpus as two ranks
+    # sharing the device on gloo and, on a card, one rank on nccl; the
+    # 8 MB at the shipping config (its dictionary) as two ranks on gloo
+    build = Path(__file__).resolve().parent / ".build"
+    build.mkdir(exist_ok=True)
+    kind = "cuda" if cuda else "cpu"
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        ship_in = Path(tmp, "ship.bin")
+        ship_in.write_bytes(data)
+        ship = dict(input_path=ship_in, block_size=SHIP["block_size"],
+                    dict_size=SHIP["dict_size"])
+        mp_runs = {"gloo_2proc": (2, "gloo", {}), "gloo_2proc_ship": (2, "gloo", ship)}
+        if cuda:
+            mp_runs["nccl_1proc"] = (1, "nccl", {})
+        with ThreadPoolExecutor(len(mp_runs)) as pool:
+            runs = {name: pool.submit(mp_dryrun.spawn, procs, backend, kind, Path(tmp, name),
+                                      MP_TIMEOUT, **kw)
+                    for name, (procs, backend, kw) in mp_runs.items()}
+            mp = {name: f.result() for name, f in runs.items()}
+    if not mp["gloo_2proc_ship"].startswith(
+            f"{mp_dryrun.OK}: 2 processes x 1 device ({kind}, gloo), {len(data)} bytes in "
+            f"{n_wide} blocks of {SHIP['block_size']} ({n_wide + n_wide % 2} rows), dictionary "
+            f"{SHIP['dict_size']} bytes"):
+        raise AssertionError(f"mesh: the shipping mp_dryrun run: {mp['gloo_2proc_ship']}")
+    emit({"phase": "mesh", "ok": True, "shards_on": str(on_card(1)[0]), "blocks": n_wide,
+          "wide_ship": wide, "v1_bench": v1, "enc_v1": enc, "nlzc_k3_ms": nlzc_ms,
+          "equal": equal, "corrupt_raised": raised,
+          "current_device": {"before": before, "after": after},
+          "mp_dryrun": mp, "mp_seconds": time.perf_counter() - t0,
+          "launches": {p: {n: c for n, c in v.items() if c} for p, v in paths.items()},
+          "timing": f"host clock: decodes best of {MESH_REPS}, encodes one call; one card, and "
+                    f"one process stages its k shards in turn (no scaling)",
+          "card": card})
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -6259,8 +6432,9 @@ def main() -> int:
                     f"plane_decode launch of {KERNEL_REPS} calls of the ten planes summed, a call; "
                     f"plain: 1 call (its comparison call past 1 s)",
           "card": card})
-    research_launches = run_research(tally, corpus, "cuda", card)
+    research_launches, nlzc_blob = run_research(tally, corpus, "cuda", card)
     cli_launches = run_cli(data, "cuda", card)
+    mesh_launches = run_mesh(corpus, wide_c, v1_c, nlzc_blob, "cuda", card)
 
     src = "nlzm_tpu_torch/csrc/"
     replaces = {
@@ -6297,7 +6471,7 @@ def main() -> int:
     paths = {"e2e_ship": wide_launches, "e2e_v1_bench": v1_launches,
              **{f"stream_{f}": c for f, c in stream_launches.items()}, **enc_launches,
              **v1enc_launches, **opt_launches, **plane_launches, **research_launches,
-             **cli_launches}
+             **cli_launches, **mesh_launches}
     rows = []
     for n in replaces:
         r = tally.k[n]

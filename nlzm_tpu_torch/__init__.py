@@ -16,6 +16,13 @@ research/ppm_tpu.py (NLZC, decompress) and research/huff0.py (decode).
 Each jitted device function of nlzm_tpu on those paths is a CUDA kernel
 written by hand (nlzm_tpu_torch/csrc) beside a plain PyTorch version.
 
+Blocks shard over devices (parallel/mesh.py: make_mesh, an ordered
+device list, and decode_container_sharded, decode_wide_sharded; the v1
+device encode's and NLZC's mesh= argument) and over processes, one a
+device, on torch.distributed (parallel/mp_dryrun.py): each shard runs
+the same kernels on its device, then one ordered gather of the blocks'
+sizes and the CRC check.
+
 The host engines run on the native library (native/, built at first
 use): the containers' native decode (decode_container and
 decode_container_stream with engine="native": format/wide.py's host plane

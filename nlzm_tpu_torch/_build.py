@@ -133,11 +133,14 @@ def check_cuda(name: str, *tensors) -> None:
 
 def launch(fn, ptrs, ints, device) -> None:
     """Call a kernel entry on `device`'s current torch stream; raise on a
-    nonzero launch status."""
+    nonzero launch status. Every entry calls cudaSetDevice(device) and
+    leaves it set, so the call runs under torch.cuda.device(index): the
+    caller's current device comes back when it returns."""
     import torch
 
     index = device.index if device.index is not None else torch.cuda.current_device()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    status = fn(*ptrs, *ints, index, stream)
+    with torch.cuda.device(index):
+        stream = torch.cuda.current_stream(index).cuda_stream
+        status = fn(*ptrs, *ints, index, stream)
     if status != 0:
         raise KernelLaunchError(f"{fn.__name__}: CUDA error {status} at launch")

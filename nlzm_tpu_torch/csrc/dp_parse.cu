@@ -383,10 +383,17 @@ NLZM_API int nlzm_dp_parse(const void* delta, const void* mlen, const void* n_va
   cudaSetDevice(device);
   if (num_cands != C || L < 1 || L > NLENS) return (int)cudaErrorInvalidValue;
   if (B == 0 || N == 0) return 0;
-  static cudaError_t carveout = cudaFuncSetAttribute(  // once: as many blocks resident as fit
-      dp_parse_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-      cudaSharedmemCarveoutMaxShared);
-  if (carveout != cudaSuccess) return (int)carveout;
+  // once a device: as many blocks resident as fit. The attribute belongs
+  // to the current device, so a process that launches on several cards
+  // sets it on each. It is a hint: bytes cannot show it missing, only time.
+  static bool carveout_set[64] = {};
+  if (device < 0 || device >= 64 || !carveout_set[device]) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        dp_parse_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+        cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return (int)e;
+    if (device >= 0 && device < 64) carveout_set[device] = true;
+  }
   dp_parse_kernel<<<B, 64, 0, (cudaStream_t)stream>>>(
       (const int*)delta, (const int*)mlen, (const int*)n_valid, (const int*)costs,
       (int*)choice_len, (int*)choice_cand, N, L);

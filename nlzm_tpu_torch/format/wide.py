@@ -9,7 +9,8 @@ tests/test_torch_host_engines.py pin every piece here to the original:
 the plane table, the chunk schedule, the fence rule (build_cdf, which the
 NLZC encoder of research/ppm_tpu.py also runs), the parsed payloads and
 priors of real containers, the command classification into plane arrays,
-the priors and the payload assembly, and the host reference decode
+the priors and the payload assembly, the padding payload of a sharded
+decode (empty_payload), and the host reference decode
 (decode_wide_block: the native engine's wide decode).
 
 Block payload layout (big-endian): per plane u32 sym_count, u32
@@ -287,6 +288,23 @@ def assemble_payloads(per_block, plane_counts, plane_streams, plane_offsets):
         out += bits
         payloads.append(bytes(out))
     return payloads
+
+
+def empty_payload() -> bytes:
+    """Format-valid payload of a zero-command block (mesh padding).
+
+    Zero symbol counts still require each plane's 4*L seed bytes (the
+    decoder stages seeds unconditionally; an all-zero header would make
+    the streams shorter than the seed region).
+    """
+    out = bytearray()
+    for spec in PLANES:
+        out += (0).to_bytes(4, "big")
+        out += (4 * spec.lanes).to_bytes(4, "big")
+    out += (0).to_bytes(4, "big")  # bits_len; nc=1 per plane -> no deltas
+    for spec in PLANES:
+        out += bytes(4 * spec.lanes)
+    return bytes(out)
 
 
 def parse_payload(payload: bytes):

@@ -9,7 +9,8 @@ move-to-front table, and emits one command (op_len, op_val).
 
 fsm_decode_v2 dispatches on the device of its input: CUDA tensors launch
 csrc/fsm_decode.cu, CPU tensors run fsm_decode_v2_ref, a step loop
-vectorised across blocks like the JAX scan. The model state is one
+vectorised across blocks like the JAX scan (on a card, one step's CUDA
+graph replayed). The model state is one
 [B, 72, 17] bank in the layout of ops/cdf_ops.py (the JAX decoder keeps
 the same rows as eight per-family tensors). u32 rANS and bit-word
 arithmetic is carried in int64 masked to 32 bits, i32 positions wrap as
@@ -47,36 +48,48 @@ def _i32(x):
     return ((x + 0x80000000) & _M32) - 0x80000000
 
 
-def fsm_decode_v2_ref(data, num_steps: int):
-    """Plain PyTorch version of fsm_decode_v2 (the contract there).
+_STATE = ("rans", "rans_pos", "bit_pos", "word", "word_bits", "num_ops", "frame_ptr", "done",
+          "rep_tab")
 
-    Two exact rewrites of the JAX step keep the op count down: the four
-    rANS lanes rotate so the current lane is always column 0, and the
-    renorm and bit cursors run relative to their step's window (every
-    offset a step can reach lies inside it, so _win_byte's clamps never
-    bind) and are folded back into the stream positions at the step's end.
-    """
+
+def _ref_setup(data):
+    """fsm_decode_v2_ref's constants and initial state on data's device:
+    (k, s). k holds the constant tensors and the model bank [B * 72, 17],
+    which every step updates in place; s the per-block state (_STATE),
+    rans [B, 4] with column 0 the current lane."""
     B, S = data.shape
-    T = int(num_steps)
     dev = data.device
     L = torch.long
     pad = (-S) % 4
     d = torch.cat([data, data.new_zeros(B, pad)], 1).long() if pad else data.long()
-    Sp = d.shape[1]
-    W = Sp // 4
-    ar = torch.arange(16, device=dev)
-    rows72 = torch.arange(B, device=dev) * NUM_CTX
-
-    bank = torch.as_tensor(initial_bank(), dtype=L, device=dev).repeat(B, 1)  # [B*72, 17]
     mixin = torch.as_tensor(mixin_tensor(), dtype=L, device=dev)  # [3, 16, 17]
     zero = torch.zeros(B, dtype=L, device=dev)
-    rans = torch.zeros(B, 4, dtype=L, device=dev)  # column 0 = the current lane
-    rans_pos, bit_pos, word, word_bits, num_ops, frame_ptr = (zero.clone() for _ in range(6))
-    done = torch.zeros(B, dtype=torch.bool, device=dev)
-    rep_tab = torch.arange(1, 5, dtype=L, device=dev).repeat(B, 1)
-    out_len = torch.empty(T, B, dtype=torch.int32, device=dev)
-    out_val = torch.empty(T, B, dtype=torch.int32, device=dev)
-    st = {}  # per-step cursors: rwin/bwin windows, rel/brel offsets, reads
+    k = dict(d=d, ar=torch.arange(16, device=dev), rows=torch.arange(B, device=dev),
+             bank=torch.as_tensor(initial_bank(), dtype=L, device=dev).repeat(B, 1),
+             mix4=mixin[0], mix8=mixin[1], mix16=mixin[2], zero=zero,
+             CMD=torch.full((B,), CTX_CMD, dtype=L, device=dev),
+             TWO=torch.full((B,), 2, dtype=L, device=dev))
+    s = dict(rans=torch.zeros(B, 4, dtype=L, device=dev),
+             done=torch.zeros(B, dtype=torch.bool, device=dev),
+             rep_tab=torch.arange(1, 5, dtype=L, device=dev).repeat(B, 1))
+    for name in ("rans_pos", "bit_pos", "word", "word_bits", "num_ops", "frame_ptr"):
+        s[name] = zero.clone()
+    return k, s
+
+
+def _ref_step(k, s, lazy: bool):
+    """One step of fsm_decode_v2_ref from state s: -> (the next state,
+    op_len, op_val [B] int64 of this step); k["bank"] is updated in
+    place. lazy: run the frame init only if a block needs it (a host
+    sync on a device), else predicated."""
+    d, ar, bank, zero = k["d"], k["ar"], k["bank"], k["zero"]
+    B, Sp = d.shape
+    W = Sp // 4
+    rows72 = k["rows"] * NUM_CTX
+    rans, word, word_bits = s["rans"], s["word"], s["word_bits"]
+    rans_pos, bit_pos, num_ops = s["rans_pos"], s["bit_pos"], s["num_ops"]
+    frame_ptr, done, rep_tab = s["frame_ptr"], s["done"], s["rep_tab"]
+    st = {}  # this step's cursors: rwin/bwin windows, rel/brel offsets, reads
 
     def header_bytes(pos, n):
         """_byte: n bytes from pos, each index clipped to the padded row."""
@@ -108,7 +121,7 @@ def fsm_decode_v2_ref(data, num_steps: int):
         st["rel"] = st["rel"] + 2 * (pred & renorm)
         st["reads"] = st["reads"] + pred
         yc = y.clamp(max=n - 1)
-        target = mix[yc] if mix.dim() == 2 else mix[torch.arange(B, device=dev), yc]
+        target = mix[yc] if mix.dim() == 2 else mix[k["rows"], yc]
         upd = row + ((target - row) >> 7)
         bank.index_copy_(0, flat, torch.where(pred[:, None], upd, row))
         return y
@@ -122,94 +135,153 @@ def fsm_decode_v2_ref(data, num_steps: int):
         can = pred[:, None] & (sh > 0)
         byte = st["bwin"].gather(1, st["brel"][:, None] + ar[:3])
         word = word | torch.where(can, byte << sh.clamp(min=0), 0).sum(1)
-        k = can.sum(1)
-        st["brel"] = st["brel"] + k
-        word_bits = word_bits + 8 * k
+        kk = can.sum(1)
+        st["brel"] = st["brel"] + kk
+        word_bits = word_bits + 8 * kk
         nb = nb.clamp(0, 24)
         v = torch.where(pred & (nb > 0), word >> (32 - nb).clamp(0, 31), 0)
         word = torch.where(pred, (word << nb) & _M32, word)
         word_bits = word_bits - torch.where(pred, nb, 0)
         return v
 
-    mix4, mix8, mix16 = mixin[0], mixin[1], mixin[2]
-    CMD = torch.full((B,), CTX_CMD, dtype=L, device=dev)
-    TWO = torch.full((B,), 2, dtype=L, device=dev)
+    need = ~done & (num_ops == 0)
+    if not lazy or bool(need.any()):  # _frame_init (the JAX lax.cond on any(need))
+        hb = header_bytes(frame_ptr, 12).view(B, 3, 4)
+        be = _i32((hb[:, :, 0] << 24) | (hb[:, :, 1] << 16) | (hb[:, :, 2] << 8) | hb[:, :, 3])
+        hdr_ops, nb_bytes, nr_bytes = be.unbind(1)
+        done = done | (need & (hdr_ops == 0))
+        init = need & (hdr_ops != 0)
+        rans_base = _i32(frame_ptr + nb_bytes)
+        lb = header_bytes(rans_base, 16).view(B, 4, 4)
+        seeds = lb[:, :, 0] | (lb[:, :, 1] << 8) | (lb[:, :, 2] << 16) | (lb[:, :, 3] << 24)
+        num_ops = torch.where(init, hdr_ops, num_ops)
+        bit_pos = torch.where(init, _i32(frame_ptr + 12), bit_pos)
+        word = torch.where(init, 0, word)
+        word_bits = torch.where(init, 0, word_bits)
+        rans = torch.where(init[:, None], seeds, rans)
+        rans_pos = torch.where(init, _i32(rans_base + 16), rans_pos)
+        frame_ptr = torch.where(init, _i32(frame_ptr + nb_bytes + nr_bytes), frame_ptr)
+    active = ~done
+    st["rwin"], st["rel"] = window(rans_pos, 4)
+    st["bwin"], st["brel"] = window(bit_pos, 3)
+    st["reads"] = zero
+    rel0, brel0 = st["rel"], st["brel"]
+
+    # R0: command
+    y0 = cdf_read(k["CMD"], k["mix4"], 4, active)
+    is_lit = active & (y0 == 0)
+    is_dict = active & (y0 == 1)
+    is_rep = active & (y0 >= 2)
+    is_match = is_dict | is_rep
+    # B0: rep slot index
+    rep_idx = bits_read(k["TWO"], is_rep)
+    # R1: literal hi nibble (16 symbols) | direct length (8)
+    y1 = cdf_read(torch.where(is_lit, CTX_LIT_HI, CTX_LEN_DIRECT),
+                  torch.where(is_lit[:, None, None], k["mix16"], k["mix8"]),
+                  torch.where(is_lit, 16, 8), active)
+    esc = is_match & (y1 == 7)
+    lc = y1.clamp(max=3)
+    # R2: literal lo nibble | length-extension hi
+    y2 = cdf_read(torch.where(is_lit, CTX_LIT_LO + y1, CTX_LEN_EXT_HI), k["mix16"], 16,
+                  is_lit | esc)
+    # R3: length-extension lo
+    y3 = cdf_read(CTX_LEN_EXT_LO + torch.where(esc, y2, 0), k["mix16"], 16, esc)
+    lv = torch.where(esc, 7 + (y2 << 4) + y3, y1)
+    # R4: distance slot hi (context: length class)
+    y4 = cdf_read(CTX_DIST_HI + torch.where(is_dict, lc, 0), k["mix8"], 8, is_dict)
+    # R5: distance slot lo (context: length class * 8 + hi slot)
+    y5 = cdf_read(CTX_DIST_LO + torch.where(is_dict, (lc << 3) + y4, 0), k["mix8"], 8, is_dict)
+
+    # distance: both raw-bit fields in one read
+    dv_slot = (y4 << 3) + y5
+    small = dv_slot < 4
+    ab = ((dv_slot >> 1) - 1).clamp(0, 30)
+    need_bits = is_dict & ~small
+    extra = bits_read(torch.where(need_bits, ab, 0), need_bits)
+    bits_reads = is_rep.long() + torch.where(need_bits, 1 + (ab > 4).long(), 0)
+    dv = torch.where(small, dv_slot, _i32(((2 + (dv_slot & 1)) << ab) + extra))
+
+    # emit
+    delta_dict = _i32(dv + 1)
+    delta_rep = rep_tab.gather(1, rep_idx.clamp(0, 3)[:, None])[:, 0]
+    delta = torch.where(is_rep, delta_rep, delta_dict)
+    mmin = 2 + (delta > 0xFF).long() + (delta > 0xFFF).long() + (delta > 0xFFFFF).long()
+    op_len = torch.where(active, torch.where(is_match, lv + mmin, 0), -1)
+    op_val = torch.where(is_lit, (y1 << 4) + y2, delta)
+
+    # rep MTF insert of fresh dict distances
+    present = (rep_tab == delta_dict[:, None]).any(1)
+    shifted = torch.cat([delta_dict[:, None], rep_tab[:, :3]], 1)
+    rep_tab = torch.where((is_dict & ~present)[:, None], shifted, rep_tab)
+    num_ops = _i32(num_ops - st["reads"] - bits_reads)
+    rans_pos = _i32(rans_pos + (st["rel"] - rel0))
+    bit_pos = _i32(bit_pos + (st["brel"] - brel0))
+    new = dict(rans=rans, rans_pos=rans_pos, bit_pos=bit_pos, word=word, word_bits=word_bits,
+               num_ops=num_ops, frame_ptr=frame_ptr, done=done, rep_tab=rep_tab)
+    return new, op_len, op_val
+
+
+def _ref_step_in_place(k, s, out_len, out_val, t_idx, lazy: bool) -> None:
+    """_ref_step writing the next state into s's tensors and the step's
+    pair into row t_idx of out_len, out_val, then t_idx + 1: every tensor
+    it touches stays where it is, so a CUDA graph can replay it."""
+    new, op_len, op_val = _ref_step(k, s, lazy)
+    for name in _STATE:
+        s[name].copy_(new[name])
+    out_len.index_copy_(0, t_idx, op_len.to(torch.int32)[None])
+    out_val.index_copy_(0, t_idx, op_val.to(torch.int32)[None])
+    t_idx.add_(1)
+
+
+def _captured(step, k, s, outs, dev):
+    """step (a call of _ref_step_in_place on k, s and outs = (out_len,
+    out_val, t_idx)) captured as a CUDA graph on dev, the current device:
+    -> its replay. One eager step on copies first loads every kernel the
+    capture records."""
+    step({**k, "bank": k["bank"].clone()}, {n: v.clone() for n, v in s.items()},
+         *(t.clone() for t in outs))
+    torch.cuda.synchronize(dev)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step(k, s, *outs)
+    return graph.replay
+
+
+def fsm_decode_v2_ref(data, num_steps: int):
+    """Plain PyTorch version of fsm_decode_v2 (the contract there): a loop
+    of _ref_step, each step all blocks at once.
+
+    Two exact rewrites of the JAX step keep the op count down: the four
+    rANS lanes rotate so the current lane is always column 0, and the
+    renorm and bit cursors run relative to their step's window (every
+    offset a step can reach lies inside it, so _win_byte's clamps never
+    bind) and are folded back into the stream positions at the step's end.
+
+    On the CPU the frame init runs only at steps where a block needs it
+    (JAX's lax.cond on any(need)) and the loop ends once every block is
+    done. On a CUDA device one step, its frame init predicated (the same
+    result: init changes only the blocks in need), is captured as a CUDA
+    graph and replayed num_steps times: no step waits for the device or
+    pays the host's dispatch of its few hundred small ops.
+    """
+    B = data.shape[0]
+    T = int(num_steps)
+    dev = data.device
+    k, s = _ref_setup(data)
+    outs = (torch.empty(T, B, dtype=torch.int32, device=dev),
+            torch.empty(T, B, dtype=torch.int32, device=dev),
+            torch.zeros(1, dtype=torch.long, device=dev))
+    out_len, out_val, _ = outs
+    if dev.type == "cuda" and T:
+        with torch.cuda.device(dev):  # a replay runs on the current device's stream
+            replay = _captured(lambda *a: _ref_step_in_place(*a, lazy=False), k, s, outs, dev)
+            for _ in range(T):
+                replay()
+        return out_len, out_val
     for t in range(T):
-        need = ~done & (num_ops == 0)
-        if bool(need.any()):  # _frame_init (the JAX lax.cond on any(need))
-            hb = header_bytes(frame_ptr, 12).view(B, 3, 4)
-            be = _i32((hb[:, :, 0] << 24) | (hb[:, :, 1] << 16) | (hb[:, :, 2] << 8) | hb[:, :, 3])
-            hdr_ops, nb_bytes, nr_bytes = be.unbind(1)
-            done = done | (need & (hdr_ops == 0))
-            init = need & (hdr_ops != 0)
-            rans_base = _i32(frame_ptr + nb_bytes)
-            lb = header_bytes(rans_base, 16).view(B, 4, 4)
-            seeds = lb[:, :, 0] | (lb[:, :, 1] << 8) | (lb[:, :, 2] << 16) | (lb[:, :, 3] << 24)
-            num_ops = torch.where(init, hdr_ops, num_ops)
-            bit_pos = torch.where(init, _i32(frame_ptr + 12), bit_pos)
-            word = torch.where(init, 0, word)
-            word_bits = torch.where(init, 0, word_bits)
-            rans = torch.where(init[:, None], seeds, rans)
-            rans_pos = torch.where(init, _i32(rans_base + 16), rans_pos)
-            frame_ptr = torch.where(init, _i32(frame_ptr + nb_bytes + nr_bytes), frame_ptr)
-        active = ~done
-        st["rwin"], st["rel"] = window(rans_pos, 4)
-        st["bwin"], st["brel"] = window(bit_pos, 3)
-        st["reads"] = zero
-        rel0, brel0 = st["rel"], st["brel"]
-
-        # R0: command
-        y0 = cdf_read(CMD, mix4, 4, active)
-        is_lit = active & (y0 == 0)
-        is_dict = active & (y0 == 1)
-        is_rep = active & (y0 >= 2)
-        is_match = is_dict | is_rep
-        # B0: rep slot index
-        rep_idx = bits_read(TWO, is_rep)
-        # R1: literal hi nibble (16 symbols) | direct length (8)
-        y1 = cdf_read(torch.where(is_lit, CTX_LIT_HI, CTX_LEN_DIRECT),
-                      torch.where(is_lit[:, None, None], mix16, mix8),
-                      torch.where(is_lit, 16, 8), active)
-        esc = is_match & (y1 == 7)
-        lc = y1.clamp(max=3)
-        # R2: literal lo nibble | length-extension hi
-        y2 = cdf_read(torch.where(is_lit, CTX_LIT_LO + y1, CTX_LEN_EXT_HI), mix16, 16,
-                      is_lit | esc)
-        # R3: length-extension lo
-        y3 = cdf_read(CTX_LEN_EXT_LO + torch.where(esc, y2, 0), mix16, 16, esc)
-        lv = torch.where(esc, 7 + (y2 << 4) + y3, y1)
-        # R4: distance slot hi (context: length class)
-        y4 = cdf_read(CTX_DIST_HI + torch.where(is_dict, lc, 0), mix8, 8, is_dict)
-        # R5: distance slot lo (context: length class * 8 + hi slot)
-        y5 = cdf_read(CTX_DIST_LO + torch.where(is_dict, (lc << 3) + y4, 0), mix8, 8, is_dict)
-
-        # distance: both raw-bit fields in one read
-        dv_slot = (y4 << 3) + y5
-        small = dv_slot < 4
-        ab = ((dv_slot >> 1) - 1).clamp(0, 30)
-        need_bits = is_dict & ~small
-        extra = bits_read(torch.where(need_bits, ab, 0), need_bits)
-        bits_reads = is_rep.long() + torch.where(need_bits, 1 + (ab > 4).long(), 0)
-        dv = torch.where(small, dv_slot, _i32(((2 + (dv_slot & 1)) << ab) + extra))
-
-        # emit
-        delta_dict = _i32(dv + 1)
-        delta_rep = rep_tab.gather(1, rep_idx.clamp(0, 3)[:, None])[:, 0]
-        delta = torch.where(is_rep, delta_rep, delta_dict)
-        mmin = 2 + (delta > 0xFF).long() + (delta > 0xFFF).long() + (delta > 0xFFFFF).long()
-        out_len[t] = torch.where(active, torch.where(is_match, lv + mmin, 0), -1)
-        out_val[t] = torch.where(is_lit, (y1 << 4) + y2, delta)
-
-        # rep MTF insert of fresh dict distances
-        present = (rep_tab == delta_dict[:, None]).any(1)
-        shifted = torch.cat([delta_dict[:, None], rep_tab[:, :3]], 1)
-        rep_tab = torch.where((is_dict & ~present)[:, None], shifted, rep_tab)
-        num_ops = _i32(num_ops - st["reads"] - bits_reads)
-        rans_pos = _i32(rans_pos + (st["rel"] - rel0))
-        bit_pos = _i32(bit_pos + (st["brel"] - brel0))
-
+        _ref_step_in_place(k, s, *outs, lazy=True)
         # once every block is done no state changes: the rest repeats step t
-        if t % 16 == 15 and bool(done.all()):
+        if t % 64 == 63 and bool(s["done"].all()):
             out_len[t + 1 :] = out_len[t]
             out_val[t + 1 :] = out_val[t]
             break

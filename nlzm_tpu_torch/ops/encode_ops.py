@@ -38,6 +38,7 @@ import torch
 
 from .. import _build, native
 from ..constants import CDF_ADAPT_BITS, CDF_SCALE_TOTAL, HASH4_MULT, chunk_size_for, frame_bits_for
+from ..utils.shards import pad_blocks, shard_rows
 from .cdf_ops import (
     CDF_WIDTH, CTX_CMD, CTX_DIST_HI, CTX_DIST_LO, CTX_LEN_DIRECT, CTX_LEN_EXT_HI, CTX_LEN_EXT_LO,
     CTX_LIT_HI, CTX_LIT_LO, NUM_CTX, initial_bank,
@@ -1023,21 +1024,40 @@ def frame_caps(block_size: int) -> tuple[int, int, int]:
 
 
 def encode_blocks_device(data: bytes, block_size: int, hist_bits: int, parser: str = "greedy",
-                         *, device="cuda"):
+                         *, device="cuda", mesh=None):
     """Encode v1 blocks on `device`, one NLZM frame per block; returns
     (payloads, reads, cmds) like native.encode_blocks. Each payload is the
     12-byte frame header (u32be item count, 12 + bit-section bytes,
     rANS-section bytes), the bit section and the rANS section. Raises
-    ValueError when block_size exceeds one frame's chunk at hist_bits."""
+    ValueError when block_size exceeds one frame's chunk at hist_bits.
+
+    mesh: a sequence of devices (parallel/mesh.py::make_mesh) to shard the
+    blocks over instead of `device`: the blocks are padded to a multiple
+    of its length with empty ones (n_valid 0), each shard's rows go up to
+    its device and through encode_pipeline_device there, and the real
+    blocks' results come back in order (as nlzm_tpu's
+    encode_blocks_tpu(mesh=))."""
     check_one_frame(block_size, hist_bits)
     arr, n_valid = _blocks_arrays(data, block_size)
     if arr.shape[0] == 0:
         return [], [], []
     num_steps, rans_cap, bits_cap = frame_caps(block_size)
-    dev = torch.device(device)
-    return frame_payloads(*encode_pipeline_device(
-        torch.as_tensor(arr, device=dev), torch.as_tensor(n_valid, device=dev),
-        (1 << hist_bits) - 1, num_steps, rans_cap, bits_cap, parser))
+    shards = [torch.device(device)] if mesh is None else [torch.device(d) for d in mesh]
+    arr, n_blocks = pad_blocks(arr, len(shards))
+    n_valid, _ = pad_blocks(n_valid, len(shards))
+    sections = []
+    for i, dev in enumerate(shards):
+        lo, hi = shard_rows(arr.shape[0], len(shards), i)
+        sections.append(encode_pipeline_device(
+            torch.as_tensor(arr[lo:hi], device=dev), torch.as_tensor(n_valid[lo:hi], device=dev),
+            (1 << hist_bits) - 1, num_steps, rans_cap, bits_cap, parser))
+    payloads, reads, cmds = [], [], []
+    for sec in sections:
+        p, r, c = frame_payloads(*sec)
+        payloads += p
+        reads += r
+        cmds += c
+    return payloads[:n_blocks], reads[:n_blocks], cmds[:n_blocks]
 
 
 def frame_payloads(stream, rans_bytes, bits, bits_n, nops, ncmds):

@@ -299,11 +299,15 @@ def _lz_expand_rows(cmds, T: int, block_size: int, rounds_hint=None, dict_arr=No
     return out, produced
 
 
-def scatter_blocks(parts, n_blocks: int, block_size: int, total_len: int, device) -> bytes:
-    """Decoded buckets [(out [Bk, block_size] uint8, block_index_list), ...]
-    on `device` -> host bytes: block b at b * block_size, cut to total_len."""
+def scatter_blocks(parts, n_blocks: int, block_size: int, device):
+    """Decoded buckets [((out [Bk, block_size] uint8, produced [Bk]),
+    block_index_list), ...] on `device` -> (out [n_blocks, block_size]
+    uint8, produced [n_blocks] int32) there, rows in block order."""
     dev = torch.device(device)
     full = torch.zeros(n_blocks, block_size, dtype=torch.uint8, device=dev)
-    for out, idx in parts:
-        full[torch.as_tensor(idx, device=dev)] = out
-    return full.cpu().numpy().tobytes()[:total_len]
+    produced = torch.zeros(n_blocks, dtype=torch.int32, device=dev)
+    for (out, prod), idx in parts:
+        rows = torch.as_tensor(idx, device=dev)
+        full[rows] = out
+        produced[rows] = prod.to(torch.int32)
+    return full, produced

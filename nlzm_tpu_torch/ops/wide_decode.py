@@ -1002,13 +1002,12 @@ def stage_buckets(payloads, priors_blob: bytes | None, max_depth, dict_arr, *, d
     return buckets
 
 
-def decode_wide_blocks(
-    payloads, block_size: int, total_len: int, priors_blob: bytes | None,
-    max_depth, dict_arr, *, device,
-) -> bytes:
+def decode_wide_blocks(payloads, block_size: int, priors_blob: bytes | None, max_depth, dict_arr,
+                       *, device):
     """Decode wide-profile block payloads on `device` (arguments as in
-    stage_buckets); blocks land at block_size strides, cut to total_len."""
-    parts = [(decode_wide_staged(staged, block_size)[0], idx)
+    stage_buckets) -> (out [B, block_size] uint8, produced [B] int32)
+    there, rows in block order (expand_ops.py::scatter_blocks)."""
+    parts = [(decode_wide_staged(staged, block_size), idx)
              for staged, idx in stage_buckets(payloads, priors_blob, max_depth, dict_arr,
                                               device=device)]
-    return scatter_blocks(parts, len(payloads), block_size, total_len, device)
+    return scatter_blocks(parts, len(payloads), block_size, device)

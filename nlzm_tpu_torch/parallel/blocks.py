@@ -43,13 +43,14 @@ import torch
 
 from .. import native
 from ..constants import frame_bits_for
-from ..format.wide import decode_wide_block, priors_blob_size
+from ..format.wide import decode_wide_block, empty_payload, priors_blob_size
 from ..ops.decode_v2 import fsm_decode_v2
 from ..ops.encode_ops import encode_blocks_device, parse_blocks_device
 from ..ops.expand_ops import lz_expand_parallel, scatter_blocks
 from ..ops.wide_decode import decode_wide_blocks, dict_tensor
 from ..ops.wide_encode_dev import encode_wide_blocks_device
 from ..utils.crc32 import crc32
+from ..utils.shards import shard_rows
 
 MAGIC = b"NLZP"
 VERSION = 4
@@ -296,12 +297,74 @@ def decode_v1_staged(streams, num_steps: int, block_size: int):
     return lz_expand_parallel(op_len, op_val, block_size)
 
 
-def decode_v1_blocks(payloads, num_cmds, block_size: int, total_len: int, *, device) -> bytes:
-    """Decode v1 block payloads on `device`; blocks land at block_size
-    strides, cut to total_len."""
-    parts = [(decode_v1_staged(streams, num_steps, block_size)[0], idx)
+def decode_v1_blocks(payloads, num_cmds, block_size: int, *, device):
+    """Decode v1 block payloads on `device` -> (out [B, block_size] uint8,
+    produced [B] int32) there, rows in block order
+    (ops/expand_ops.py::scatter_blocks)."""
+    parts = [(decode_v1_staged(streams, num_steps, block_size), idx)
              for streams, num_steps, idx in stage_v1_payloads(payloads, num_cmds, device=device)]
-    return scatter_blocks(parts, len(payloads), block_size, total_len, device)
+    return scatter_blocks(parts, len(payloads), block_size, device)
+
+
+def block_bytes(shards, keep: int) -> bytes:
+    """Decoded rows in block order, as shards [(out [R, N] uint8,
+    produced [R]), ...] (each shard's rows consecutive, pad rows last) ->
+    their first `keep` bytes, block b at b * N, as nlzm_tpu lays them out;
+    only those bytes leave the devices."""
+    parts = []
+    for out, _ in shards:
+        take = min(keep, out.numel())
+        if take <= 0:
+            break
+        parts.append(out.reshape(-1)[:take].cpu().numpy().tobytes())
+        keep -= take
+    return b"".join(parts)
+
+
+def gathered(shards, info: ContainerInfo) -> bytes:
+    """A non-empty container's decoded shards (as in block_bytes) -> its
+    bytes, CRC-verified, after the ordered gather of the blocks' produced
+    sizes, each of which must be its block's length; IntegrityError on
+    either fault."""
+    out = _verified(block_bytes(shards, info.total_len), info)
+    n = len(info.comp_sizes)
+    sizes = torch.cat([p.cpu() for _, p in shards])[:n].numpy()
+    want = np.minimum(info.block_size, info.total_len - np.arange(n) * info.block_size)
+    if len(out) != info.total_len or (sizes != want).any():
+        raise IntegrityError("decoded block sizes do not match the container's length")
+    return out
+
+
+def decode_sharded(data: bytes, info: ContainerInfo, mesh) -> bytes:
+    """A parsed container's device decode over an ordered list of devices
+    (parallel/mesh.py::make_mesh; decode_container's is [device]): the
+    blocks padded to a multiple of its length (v1: b"" with 0 commands,
+    whose zero stream's first header ends the block; wide:
+    format/wide.py::empty_payload), shard i's contiguous rows
+    (utils/shards.py::shard_rows) staged and decoded on mesh[i], wide with
+    the container's dictionary (uploaded once a distinct device) and each
+    block's depth; every shard launches before the first copy back; then
+    gathered. Raises IntegrityError on a corrupt container."""
+    if not info.comp_sizes:
+        return _verified(b"", info)
+    n = len(mesh)
+    payloads = block_payloads(data, info)
+    pad = (-len(payloads)) % n
+    payloads += [empty_payload() if info.wide else b""] * pad
+    per_block = list(info.total_reads if info.wide else info.num_cmds) + [0] * pad
+    dicts, shards = {}, []
+    for i, d in enumerate(mesh):
+        dev = torch.device(d)
+        lo, hi = shard_rows(len(payloads), n, i)
+        if not info.wide:
+            shards.append(decode_v1_blocks(payloads[lo:hi], per_block[lo:hi], info.block_size,
+                                           device=dev))
+            continue
+        if dev not in dicts:
+            dicts[dev] = dict_tensor(info.dictionary, dev)
+        shards.append(decode_wide_blocks(payloads[lo:hi], info.block_size, info.wide_priors,
+                                         per_block[lo:hi], dicts[dev], device=dev))
+    return gathered(shards, info)
 
 
 def pack_streams(data: bytes, info: ContainerInfo) -> np.ndarray:
@@ -363,7 +426,8 @@ def decode_container(data: bytes, device="cuda", engine: str = "device") -> byte
     """Decode an NLZP container (wide or v1 profile), CRC-verified when the
     container carries a CRC.
 
-    engine="device": on `device` ("cuda", "cpu", a torch.device).
+    engine="device": on `device` ("cuda", "cpu", a torch.device;
+    decode_sharded over [device]).
     engine="native": on the native host engine (`device` unused;
     decode_blocks_native); raises NativeUnavailable when the library
     cannot be built. Raises IntegrityError on a CRC mismatch or a
@@ -372,17 +436,9 @@ def decode_container(data: bytes, device="cuda", engine: str = "device") -> byte
     if engine not in ("device", "native"):
         raise ValueError(f"engine={engine!r}: 'device' or 'native'")
     info = parse_container(data)
+    if engine == "device":
+        return decode_sharded(data, info, [device])
     if not info.comp_sizes:
         return _verified(b"", info)
-    payloads = block_payloads(data, info)
-    if engine == "native":
-        return _verified(decode_blocks_native(payloads, info, info.total_len), info)
-    dev = torch.device(device)
-    if info.wide:
-        out = decode_wide_blocks(
-            payloads, info.block_size, info.total_len, info.wide_priors,
-            info.total_reads, dict_tensor(info.dictionary, dev), device=dev,
-        )
-        return _verified(out, info)
-    out = decode_v1_blocks(payloads, info.num_cmds, info.block_size, info.total_len, device=dev)
-    return _verified(out, info)
+    return _verified(decode_blocks_native(block_payloads(data, info), info, info.total_len),
+                     info)

@@ -29,8 +29,8 @@ from ..ops.wide_decode import decode_wide_blocks, dict_tensor
 from ..utils.crc32 import crc32
 from .blocks import (
     _BLK, _HDR, FLAG_CRC32, FLAG_DICT, FLAG_PRIORS, FLAG_WIDE, MAGIC, VERSION, WIDE_MAX_BLOCK,
-    ContainerInfo, IntegrityError, _compress_dict, _decompress_dict, decode_blocks_native,
-    decode_v1_blocks, hist_bits_for_block,
+    ContainerInfo, IntegrityError, _compress_dict, _decompress_dict, block_bytes,
+    decode_blocks_native, decode_v1_blocks, hist_bits_for_block,
 )
 
 DEFAULT_BUCKET_BYTES = 16 << 20
@@ -258,12 +258,12 @@ def decode_container_stream(
                 if engine == "native":
                     plain = decode_blocks_native(payloads, info, keep)
                 elif info.wide:
-                    plain = decode_wide_blocks(
-                        payloads, N, keep, info.wide_priors,
-                        info.total_reads[b0 : b0 + nb], dict_arr, device=device)
+                    plain = block_bytes([decode_wide_blocks(
+                        payloads, N, info.wide_priors, info.total_reads[b0 : b0 + nb],
+                        dict_arr, device=device)], keep)
                 else:
-                    plain = decode_v1_blocks(
-                        payloads, info.num_cmds[b0 : b0 + nb], N, keep, device=device)
+                    plain = block_bytes([decode_v1_blocks(
+                        payloads, info.num_cmds[b0 : b0 + nb], N, device=device)], keep)
                 crc = crc32(plain, crc)
                 if out_f is not None:
                     out_f.write(plain)

@@ -15,11 +15,12 @@ The host side (constants, schedule, layout, prior, encode_blocks,
 compress) is a copy of the original, pinned by tests/test_torch_host.py:
 compress writes its bytes exactly, with the port's huff0.encode and
 format/wide.py build_cdf. The decode stages a container's streams
-(stage_container, which decodes the prior with huff0's device engine)
-and runs _decode_blocks: CPU tensors the plain version _decode_blocks_ref,
+over a list of devices (stage_sharded, which decodes the prior with
+huff0's device engine; stage_container for one device) and runs
+_decode_blocks on each: CPU tensors the plain version _decode_blocks_ref,
 CUDA tensors csrc/ppm_decode.cu. Entry points run on "cuda" unless the
-caller names another device; nlzm_tpu's mesh sharding is not ported
-(multi-GPU, ROADMAP queue A item 11).
+caller names another device, or shard the blocks over a mesh
+(decompress(mesh=), as nlzm_tpu's; parallel/mesh.py).
 """
 
 from typing import NamedTuple
@@ -31,6 +32,7 @@ from .. import _build
 from ..constants import CDF_SCALE_BITS, CDF_SCALE_TOTAL
 from ..format.wide import build_cdf
 from ..ops.wide_decode import _build_cdf
+from ..utils.shards import pad_blocks, shard_rows
 from . import huff0
 
 # NLZC's own adaptation cadence (decoupled from the wide profile's,
@@ -267,44 +269,64 @@ class Layout(NamedTuple):
     total_len: int
 
 
-def stage_streams(streams, block_size: int, total_len: int, prior, device):
-    """-> (args, layout): args the arguments of _decode_blocks on
-    `device` (words [B, W] int32 holding each block's stream as
+def stage_streams(streams, block_size: int, total_len: int, prior, shards):
+    """-> (args, layout): args a list, shard i's arguments of _decode_blocks
+    on shards[i] (words [R, W] int32 holding each block's stream as
     little-endian u32 words, zero-padded by at least 2 words; seg_lens
-    [B, 32] int32; prior [2, ROWS, 16] int32; steps), layout the
-    Layout of reassemble. Each block segments by its own length (the
-    last may be short)."""
+    [R, 32] int32; prior [2, ROWS, 16] int32; steps), layout the Layout of
+    reassemble. Each block segments by its own length (the last may be
+    short).
+
+    shards: a sequence of devices, [device] for one, or a mesh
+    (parallel/mesh.py::make_mesh). The rows pad to a multiple of its
+    length with zero words and zero segment lengths, and shard i holds
+    rows utils/shards.py::shard_rows (W and steps those of all the
+    blocks; the prior uploaded once a distinct device)."""
     B = len(streams)
+    n = len(shards)
     wmax = (max(len(s) for s in streams) + 3) // 4 + 2
     arr = np.zeros((B, 4 * wmax), np.uint8)
     for b, s in enumerate(streams):
         arr[b, : len(s)] = np.frombuffer(s, np.uint8)
-    a4 = arr.reshape(B, wmax, 4).astype(np.uint32)
-    words = a4[:, :, 0] | (a4[:, :, 1] << 8) | (a4[:, :, 2] << 16) | (a4[:, :, 3] << 24)
+    arr, _ = pad_blocks(arr, n)
+    a4 = arr.reshape(arr.shape[0], wmax, 4).astype(np.uint32)
+    words = (a4[:, :, 0] | (a4[:, :, 1] << 8) | (a4[:, :, 2] << 16) | (a4[:, :, 3] << 24)
+             ).view(np.int32)
 
     nb = np.minimum(np.full(B, block_size, np.int64), total_len - np.arange(B) * block_size)
     S_b = -(-nb // LANES)
     seg = np.clip(nb[:, None] - np.arange(LANES)[None, :] * S_b[:, None], 0, S_b[:, None])
+    seg_rows, _ = pad_blocks(seg.astype(np.int32), n)
     steps = padded_steps(int(S_b.max()), 1)
-    dev = torch.device(device)
-    args = (torch.as_tensor(words.view(np.int32), device=dev),
-            torch.as_tensor(seg.astype(np.int32), device=dev),
-            torch.as_tensor(np.asarray(prior, np.int32), device=dev), steps)
+    prior = np.asarray(prior, np.int32)
+    priors, args = {}, []
+    for i, d in enumerate(shards):
+        dev = torch.device(d)
+        if dev not in priors:
+            priors[dev] = torch.as_tensor(prior, device=dev)
+        lo, hi = shard_rows(words.shape[0], n, i)
+        args.append((torch.as_tensor(words[lo:hi], device=dev),
+                     torch.as_tensor(seg_rows[lo:hi], device=dev), priors[dev], steps))
     return args, Layout(seg, total_len)
 
 
-def stage_container(blob: bytes, device="cuda"):
-    """Parse an NLZC container and stage its decode on `device`.
-
-    -> (args, layout) as in stage_streams; with no blocks args is None.
-    The counterpart of nlzm_tpu's stage_container without its mesh
-    (block sharding); the prior decodes on `device`.
-    """
+def stage_sharded(blob: bytes, shards):
+    """Parse an NLZC container and stage its decode over `shards` (as in
+    stage_streams; nlzm_tpu's stage_container(mesh=)): -> (args, layout),
+    args None with no blocks. The prior decodes on shards[0]."""
     block_size, total_len, prior_bytes, streams = parse_container(blob)
-    prior = decode_prior(prior_bytes, device)
+    prior = decode_prior(prior_bytes, shards[0])
     if not streams:
         return None, Layout(None, total_len)
-    return stage_streams(streams, block_size, total_len, prior, device)
+    return stage_streams(streams, block_size, total_len, prior, shards)
+
+
+def stage_container(blob: bytes, device="cuda"):
+    """Parse an NLZC container and stage its decode on `device`:
+    stage_sharded over [device], args the arguments of _decode_blocks
+    there (None with no blocks)."""
+    args, layout = stage_sharded(blob, [device])
+    return (None if args is None else args[0]), layout
 
 
 def reassemble(out, layout: Layout) -> bytes:
@@ -315,12 +337,16 @@ def reassemble(out, layout: Layout) -> bytes:
     return o[keep].tobytes()[: layout.total_len]
 
 
-def decompress(blob: bytes, device="cuda") -> bytes:
-    """Batched device decode of an NLZC container (see stage_container)."""
-    args, layout = stage_container(blob, device)
+def decompress(blob: bytes, device="cuda", mesh=None) -> bytes:
+    """Batched device decode of an NLZC container on `device`, or with its
+    blocks sharded over a mesh (a sequence of devices,
+    parallel/mesh.py::make_mesh; nlzm_tpu's decompress(mesh=)): each
+    shard decodes on its device and the blocks come back in order."""
+    args, layout = stage_sharded(blob, [device] if mesh is None else mesh)
     if args is None:
         return b""
-    return reassemble(_decode_blocks(*args), layout)
+    outs = [_decode_blocks(*a) for a in args]
+    return reassemble(torch.cat([o.cpu() for o in outs])[: len(layout.seg)], layout)
 
 
 _U32 = 0xFFFFFFFF

@@ -72,10 +72,11 @@ def wide_stages(container: bytes, data: bytes, dev) -> dict:
     dict_arr = wd.dict_tensor(info.dictionary, dev)
     buckets = wd.stage_buckets(payloads, info.wide_priors, info.total_reads, dict_arr, device=dev)
     c.lap("stage_buckets (host staging + upload)")
-    parts = [(wd.decode_wide_staged(staged, info.block_size)[0], idx) for staged, idx in buckets]
+    parts = [(wd.decode_wide_staged(staged, info.block_size), idx) for staged, idx in buckets]
     c.lap("decode_wide_staged (4 kernels per bucket)")
-    plain = scatter_blocks(parts, len(payloads), info.block_size, info.total_len, dev)
-    c.lap("scatter_blocks (scatter + device-to-host copy)")
+    plain = blocks.block_bytes([scatter_blocks(parts, len(payloads), info.block_size, dev)],
+                               info.total_len)
+    c.lap("scatter_blocks + block_bytes (scatter + device-to-host copy)")
     check(plain, data, info)
     c.lap("CRC32 verify")
     return c.ms
@@ -89,11 +90,12 @@ def v1_stages(container: bytes, data: bytes, dev) -> dict:
     c.lap("block_payloads")
     buckets = blocks.stage_v1_payloads(payloads, info.num_cmds, device=dev)
     c.lap("stage_v1_payloads (host staging + upload)")
-    parts = [(blocks.decode_v1_staged(streams, num_steps, info.block_size)[0], idx)
+    parts = [(blocks.decode_v1_staged(streams, num_steps, info.block_size), idx)
              for streams, num_steps, idx in buckets]
     c.lap("decode_v1_staged (fsm_decode + lz_expand per bucket)")
-    plain = scatter_blocks(parts, len(payloads), info.block_size, info.total_len, dev)
-    c.lap("scatter_blocks (scatter + device-to-host copy)")
+    plain = blocks.block_bytes([scatter_blocks(parts, len(payloads), info.block_size, dev)],
+                               info.total_len)
+    c.lap("scatter_blocks + block_bytes (scatter + device-to-host copy)")
     check(plain, data, info)
     c.lap("CRC32 verify")
     return c.ms
@@ -211,7 +213,7 @@ def nlzc_stages(blob: bytes, data: bytes, dev) -> dict:
     c.lap("parse_container")
     prior = ppm_tpu.decode_prior(prior_bytes, dev)
     c.lap("decode_prior (huff0 device decode: tables, upload, huff_scan, copy back)")
-    args, layout = ppm_tpu.stage_streams(streams, block_size, total_len, prior, dev)
+    (args,), layout = ppm_tpu.stage_streams(streams, block_size, total_len, prior, [dev])
     c.lap("stage_streams (host staging + upload)")
     ppm_tpu._check_prior(args[2])
     c.lap("the prior's 0..255 check alone (torch.aminmax), for comparison")

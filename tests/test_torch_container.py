@@ -129,17 +129,22 @@ def test_wrappers_refuse_other_devices():
 
 
 def test_port_runs_without_jax():
-    """Importing and running the port (wide and v1 decode) loads nothing
+    """Importing and running the port (wide and v1 decode, the sharded
+    wide decode, the multi-process module) loads nothing
     of jax, nlzm_tpu or bench.py (the GPU machine has no jax); a
     subprocess, since this test process has them loaded."""
     code = (
         "import sys, torch\n"
         "torch.set_num_threads(1)\n"
         "import nlzm_tpu_torch\n"
+        "from nlzm_tpu_torch.parallel import mesh, mp_dryrun\n"
         "data = bytes(range(256)) * 40 + b'wide profile ' * 300\n"
         "for kw in (dict(profile='wide', parser='optimal'), dict(parser='greedy')):\n"
         "    c = nlzm_tpu_torch.encode_container(data, block_size=4096, **kw)\n"
         "    assert nlzm_tpu_torch.decode_container(c, device='cpu') == data\n"
+        "    sharded = mesh.decode_wide_sharded if kw.get('profile') else \\\n"
+        "        mesh.decode_container_sharded\n"
+        "    assert sharded(c, mesh.make_mesh(['cpu'] * 2)) == data\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'bench', 'nlzm_tpu')\n"
         "             or m.startswith(('jax.', 'nlzm_tpu.')))\n"
         "assert not bad, bad\n"

@@ -82,6 +82,28 @@ def test_fsm_matches_jax_on_hostile_streams(corpus_samples, seed):
         assert (t_len[end:, b] == -1).all() and (t_val[end:, b] == t_val[end, b]).all()
 
 
+@pytest.mark.parametrize("case", ["two_frames", "hostile0", "hostile1"])
+def test_fsm_ref_init_every_step_matches_jax(corpus_samples, corpus_text, case):
+    """The step fsm_decode_v2_ref captures as a CUDA graph and replays on a
+    card, run here eagerly: the state held in place, the frame init
+    predicated at every step (no step waits for any(need)), no early
+    exit; JAX's arrays, dead steps included."""
+    if case == "two_frames":
+        arr, num_steps = _staged(corpus_text(40000), block_size=16384, parser="greedy")
+    else:
+        arr, num_steps = _staged(corpus_samples["text"], block_size=1024, parser="greedy")
+        arr = hostile_streams(arr, int(case[-1]))
+    j_len, j_val = (np.asarray(a) for a in jax_fsm(jnp.asarray(arr), num_steps))
+    k, s = decode_v2._ref_setup(torch.from_numpy(arr.copy()))
+    outs = (torch.empty(num_steps, arr.shape[0], dtype=torch.int32),
+            torch.empty(num_steps, arr.shape[0], dtype=torch.int32),
+            torch.zeros(1, dtype=torch.long))
+    for _ in range(num_steps):
+        decode_v2._ref_step_in_place(k, s, *outs, lazy=False)
+    np.testing.assert_array_equal(outs[0].numpy(), j_len)
+    np.testing.assert_array_equal(outs[1].numpy(), j_val)
+
+
 @pytest.mark.parametrize("n", [4, 8, 16])
 def test_adaptation_pins_fence_ends(n):
     """What the kernel's one-ballot search rests on: under any symbols,

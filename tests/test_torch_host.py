@@ -102,6 +102,13 @@ def test_format_tables():
             assert twide.padded_steps(n, lanes) == jwide.padded_steps(n, lanes)
 
 
+def test_empty_payload():
+    """The mesh's padding payload, byte for byte, and what it parses to."""
+    assert twide.empty_payload() == jwide.empty_payload()
+    counts, streams, offsets, bits = twide.parse_payload(twide.empty_payload())
+    assert list(counts) == [0] * twide.N_PLANES and bits == b""
+
+
 def test_container_constants():
     for name in ("MAGIC", "VERSION", "FLAG_CRC32", "FLAG_WIDE", "FLAG_PRIORS", "FLAG_DICT",
                  "DEFAULT_BLOCK_SIZE", "WIDE_MAX_BLOCK"):
